@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on an NVIDIA card and check it.
+"""Drive the PyTorch port's main paths once on an NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); imports no JAX and
-nothing of the JAX package.  Phases, in order — any failure exits non-zero:
+nothing of the JAX package.  Phases, in order — any failure exits non-zero,
+and each prints its seconds:
 
 1. environment: card name and power limit, torch and CUDA versions; TF32
    off for matmuls and convolutions;
-2. build: ``nvcc`` compiles every kernel of the path from
-   ``src/repro_torch/kernels/csrc/`` (timed);
+2. build: ``nvcc`` compiles every kernel from
+   ``src/repro_torch/kernels/csrc/``, one process per source, all at once;
 3. kernel vs plain: each kernel against its plain torch version on the
-   card at the main path's shapes, timed with CUDA events beside the
-   library yardstick and the byte/operation bound;
-4. main path: ``run_simulation(device="cuda")`` on the quickstart config
-   (mnist_dnn at full width, 20 UEs, A = 5), batched and then sequential;
+   card at the main paths' shapes, timed with CUDA events beside the
+   library yardstick and the byte/operation bound (Eq. 8 in f32; flash
+   and decode attention in bf16, the working type, and in f32).  Each bf16
+   attention check is also shown a planted fault, which it must reject;
+4. main path of slice 1: ``run_simulation(device="cuda")`` on the
+   quickstart config (mnist_dnn at full width, 20 UEs, A = 5), batched and
+   then sequential;
 5. scale point: 256 UEs, A = 128 (the engine sweep's top point);
 6. card-side golden: the first static golden of ``tests/test_driver.py``
-   from the JAX package's seed-0 init (``src/repro_torch/testdata``).
+   from the JAX package's seed-0 init (``src/repro_torch/testdata``);
+7. serve: full-width yi-6b in bf16 through ``repro_torch.launch.serve``
+   (batch 4, prompt 2,048, 32 tokens, cache 4,096; then the CLI's own
+   defaults), then the decode kernel held against the model's own decode
+   attention on layer 0 of the live cache, and a few more decode steps
+   under ``torch.profiler`` for the card's idle share;
+8. score: full-width yi-6b ``loss`` with ``attn_impl="pallas"`` on two
+   4,096-token user streams — the flash kernel's path, one launch per
+   layer — against ``attn_impl="xla"`` on the same params: the losses,
+   each token's logits, and each flash call held against the plain
+   version on its own inputs; flash with the causal mask dropped must
+   fail the logits check.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line.
 """
 import collections
+import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -35,8 +52,10 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+# H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit
+H100_BYTES_PER_S = 3.35e12          # HBM3
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12            # bf16 tensor cores
 
 # tests/test_driver.py::test_static_trajectory_matches_pre_refactor_golden
 GOLDEN_TIMES = ["0x0.0p+0", "0x1.b877293c2d615p-1",
@@ -113,14 +132,19 @@ def phase_environment(torch):
     return smi
 
 
-def phase_build(agg):
+def phase_build(kernels):
+    """One ``nvcc`` per source, all started together (the builds are
+    subprocesses, so threads overlap them)."""
     t0 = time.perf_counter()
-    log = agg.build()
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
+        futs = {m.SOURCE.name: ex.submit(m.build) for m in kernels}
+        logs = {name: f.result() for name, f in futs.items()}
     dt = time.perf_counter() - t0
-    print(f"[build] stale_aggregate.cu -> sm_90a in {dt:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    print(f"[build] {', '.join(logs)} -> sm_90a in {dt:.2f} s (parallel)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
 
 
 def _agg_inputs(torch, c, n, seed):
@@ -356,17 +380,500 @@ def phase_golden(torch, mods, device="cuda"):
           f"{rel:.2e}, global {rel_g:.2e} (rtol 1e-4)")
 
 
+# ---------------------------------------------------------------------------
+# slice 2: attention kernels, serving and scoring of yi-6b
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain; the plain version runs on the same inputs in f32 and its
+# output is not rounded.  f32: the largest absolute error (another
+# summation order over up to L keys).  bf16: the largest error of an output
+# row relative to that row, ||got - want|| / ||want|| over the head dim,
+# so late rows, whose outputs average thousands of keys and are small,
+# are held as tightly as early ones.  A kernel that computes in f32 and
+# rounds its output once to bf16 stays under 2^-8 (half a bf16 ulp);
+# the flash kernel also rounds P to bf16 for its tensor-core product.
+F32_ABS_TOL = 5e-5
+BF16_ROW_RTOL = {"flash": 1e-2, "decode": 4e-3}
+# Scoring yi-6b in bf16, pallas against xla: the losses (the mean over
+# 8,192 tokens), and the logits of each token as a row.  The residual
+# stream is rounded to bf16 after every layer, so the attention's small
+# differences flip roundings that 32 layers compound: the logits read
+# 2.3e-2 on an NVIDIA H100 80GB HBM3 at 700 W, flash with the causal mask
+# dropped 1.4.
+SCORE_LOSS_RTOL = 1e-3
+SCORE_LOGIT_ROW_RTOL = 5e-2
+
+
+def attn_errors(got, want):
+    """(max abs error, max over rows of ||got - want|| / ||want||); rows
+    run along the last axis and ``want`` is f32."""
+    diff = got.float() - want
+    rel = diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    return float(diff.abs().max()), float(rel.max())
+
+
+def hold(torch, kernel, got, want, what):
+    """Check a kernel's output against its f32 plain version by the rule
+    of the output's dtype; returns (max abs error, max row rel error)."""
+    err, rel = attn_errors(got, want)
+    if got.dtype == torch.float32:
+        ok, limit = err <= F32_ABS_TOL, f"abs {F32_ABS_TOL:.0e}"
+    else:
+        ok, limit = rel <= BF16_ROW_RTOL[kernel], \
+            f"row rel {BF16_ROW_RTOL[kernel]:.0e}"
+    check(math.isfinite(err) and math.isfinite(rel) and ok,
+          f"{what}: max abs {err:.3e}, max row rel {rel:.3e} (limit {limit})")
+    return err, rel
+
+
+def control(torch, kernel, faulty, want, what):
+    """A planted fault's output (the plain version with the fault, rounded
+    to bf16 as a kernel's output would be) must fail the bf16 limit, or
+    the check could not see it."""
+    _, rel = attn_errors(faulty.to(torch.bfloat16), want)
+    limit = BF16_ROW_RTOL[kernel]
+    check(rel > limit, f"planted fault '{what}' reads {rel:.3e}, inside "
+          f"the {kernel} limit {limit:.0e}: the check cannot see it")
+    print(f"[control] {kernel}, planted fault '{what}': max row rel "
+          f"{rel:.3e} > {limit:.0e}, rejected")
+    return rel
+
+
+def attention_keep(torch, q, k, v, keep):
+    """Plain attention in f32 under an explicit [L, L] keep mask; a row
+    that keeps no key gives 0, as the kernel's ``acc / max(l, 1e-30)``."""
+    g = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(g, 1)) / math.sqrt(
+                         q.shape[-1])
+    p = torch.softmax(s.masked_fill_(~keep, -1e30), -1).mul_(keep)
+    del s
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.float().repeat_interleave(g, 1))
+
+
+def _flash_pairs(sl, causal, window):
+    """(q, k) pairs the mask keeps: the work this input needs."""
+    import numpy as np
+    q = np.arange(sl)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = q if causal else np.full_like(q, sl - 1)
+    return int((hi - lo + 1).sum())
+
+
+def _bound(nbytes, ops, peak_flops):
+    b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    b_ops = ops / peak_flops * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
+
+
+def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
+    g = torch.Generator(device="cuda").manual_seed(sl + d)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((b, hq, sl, d), (b, hkv, sl, d),
+                             (b, hkv, sl, d)))
+
+    def run():
+        return fa.flash_attention_bhld(q, k, v, causal=causal, window=window)
+
+    got = run()
+    torch.cuda.synchronize()
+    want = fa.attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                              window=window)
+    err, rel = hold(torch, "flash", got, want, f"flash kernel vs plain "
+                    f"({dtype}, L={sl}, window={window})")
+    del got
+    if dtype == torch.bfloat16 and window:
+        control(torch, "flash", fa.attention_plain(
+            q.float(), k.float(), v.float(), causal=causal,
+            window=window + 1), want, "window one key too wide")
+    elif dtype == torch.bfloat16:
+        qp = torch.arange(sl, device="cuda")
+        keep = (qp[None, :] <= qp[:, None]) if causal else \
+            torch.ones(sl, sl, dtype=torch.bool, device="cuda")
+        keep &= (qp[None, :] // 64) != (qp[:, None] // 64)
+        control(torch, "flash", attention_keep(torch, q, k, v, keep), want,
+                "diagonal tile skipped")
+    del want
+    torch.cuda.empty_cache()
+    slow = dtype == torch.float32
+    t_kernel = device_ms(torch, run, reps=1 if slow else 3,
+                         trials=3 if slow else 10)
+    t_plain = device_ms(torch, lambda: fa.attention_plain(
+        q, k, v, causal=causal, window=window), reps=1, trials=3)
+    mask = None
+    if window:
+        qp = torch.arange(sl, device="cuda")
+        mask = (qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :]
+                                               < window)
+    t_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True), reps=3, trials=10)
+    elem = q.element_size()
+    nbytes = (2 * b * hq * sl * d + 2 * b * hkv * sl * d) * elem
+    ops = 4 * b * hq * d * _flash_pairs(sl, causal, window)
+    bound, by = _bound(nbytes, ops, H100_BF16_FLOPS if elem == 2
+                       else H100_F32_FLOPS)
+    row = dict(max_abs_err=err, max_row_rel_err=rel, ms=t_kernel,
+               plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
+               bound_by=by)
+    print(f"[attn] flash {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} L={sl} "
+          f"D={d} causal={causal} window={window}: err={err:.3e} row "
+          f"rel={rel:.3e}  kernel={t_kernel:.3f} ms  plain={t_plain:.3f} ms  "
+          f"sdpa={t_lib:.3f} ms  bound={bound:.3f} ms ({by}; "
+          f"{ops / t_kernel / 1e9:.1f} TFLOP/s)")
+    return row
+
+
+def _ring_inputs(torch, dtype, b, hq, hkv, s, d, seed):
+    """A half-full ring that has wrapped: positions s .. 1.5 s - 1 sit in
+    slots 0 .. s/2 - 1, the other half is empty; q_pos varies by row."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=g, device="cuda").to(dtype)
+    kc, vc = (torch.randn((b, s, hkv, d), generator=g, device="cuda")
+              .to(dtype) for _ in range(2))
+    slot = torch.arange(s, device="cuda")
+    pos = torch.where(slot < s // 2, slot + s, -1).to(torch.int32)
+    pos = pos[None].repeat(b, 1)
+    q_pos = (s + s // 2 - 1 - 7 * torch.arange(b, device="cuda")).to(
+        torch.int32)
+    return q, kc.transpose(1, 2), vc.transpose(1, 2), pos, q_pos
+
+
+def _decode_bound(q, k, pos, q_pos, window=0):
+    """Bytes of the slots the mask keeps (k and v), q, o, pos and q_pos."""
+    b, hkv, _, d = k.shape
+    keep = (pos >= 0) & (pos <= q_pos[:, None])
+    if window:
+        keep &= (q_pos[:, None] - pos) < window
+    n_valid = int(keep.sum())
+    elem = k.element_size()
+    nbytes = (2 * hkv * n_valid * d * elem + 2 * q.numel() * elem
+              + pos.numel() * 4 + q_pos.numel() * 4)
+    ops = 4 * (q.shape[1] // hkv) * hkv * n_valid * d
+    return _bound(nbytes, ops, H100_BF16_FLOPS if elem == 2
+                  else H100_F32_FLOPS)
+
+
+def _decode_case(torch, da, F, dtype, b, hq, hkv, s, d):
+    q, k, v, pos, q_pos = _ring_inputs(torch, dtype, b, hq, hkv, s, d,
+                                       seed=s)
+
+    def run():
+        return da.decode_attention_bhsd(q, k, v, pos, q_pos)
+
+    got = run()
+    torch.cuda.synchronize()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = da.decode_attention_plain(qf, kf, vf, pos, q_pos)
+    err, rel = hold(torch, "decode", got, want,
+                    f"decode kernel vs plain ({dtype})")
+    if dtype == torch.bfloat16:
+        # rows b = 1..3 sit 7, 14 and 21 positions behind the newest slot
+        control(torch, "decode", da.decode_attention_plain(
+            qf, kf, vf, pos, torch.full_like(q_pos, 2 ** 30)), want,
+            "pos <= q_pos mask dropped")
+    del qf, kf, vf
+    t_kernel = device_ms(torch, run)
+    t_plain = device_ms(torch, lambda: da.decode_attention_plain(
+        q, k, v, pos, q_pos), reps=5, trials=20)
+    mask = ((pos >= 0) & (pos <= q_pos[:, None]))[:, None, None, :]
+    t_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+    bound, by = _decode_bound(q, k, pos, q_pos)
+    print(f"[attn] decode {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} S={s} "
+          f"D={d} (half-full wrapped ring): err={err:.3e} row rel="
+          f"{rel:.3e}  kernel={t_kernel * 1e3:.2f} us  plain="
+          f"{t_plain * 1e3:.2f} us  sdpa={t_lib * 1e3:.2f} us  bound="
+          f"{bound * 1e3:.2f} us ({by})")
+    return dict(max_abs_err=err, max_row_rel_err=rel, ms=t_kernel,
+                plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
+                bound_by=by)
+
+
+FLASH_SCORE_SHAPE = (2, 32, 4, 4096, 128, True, 0)
+FLASH_WINDOW_SHAPE = (2, 32, 4, 2047, 128, True, 512)
+DECODE_SHAPE = (4, 32, 4, 4096, 128)
+
+
+def phase_attention_vs_plain(torch, fa, da):
+    import torch.nn.functional as F
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE):
+            rows[("flash", dtype, shape)] = _flash_case(torch, fa, F, dtype,
+                                                        *shape)
+            torch.cuda.empty_cache()
+        rows[("decode", dtype)] = _decode_case(torch, da, F, dtype,
+                                               *DECODE_SHAPE)
+    return rows
+
+
+def phase_serve(torch, fa, da, mods, argv, device="cuda"):
+    """Full yi-6b through the serve entry point; then the decode kernel
+    against the model's own decode attention on layer 0 of the live cache
+    after the last step, with the same q."""
+    L = mods.layers
+    fa.LAUNCHES = da.LAUNCHES = 0
+    res = mods.serve.run(argv + ["--device", device])
+    launches = {"flash": fa.LAUNCHES, "decode": da.LAUNCHES}
+    cfg, params, cache, toks = res.cfg, res.params, res.cache, res.tokens
+    b, n_gen = toks.shape
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "served tokens out of the vocabulary")
+    print(f"[serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms, decode "
+          f"{res.decode_ms:.2f} ms/token, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
+          f"on the serve path {launches}")
+
+    # layer 0's q for the token the last step fed, at its position
+    qp = res.prompts.shape[1] + n_gen - 2
+    with torch.inference_mode():
+        lp0 = mods.tree_map(lambda a: a[0], params["layers"])
+        x = L.embed(params["embedding"], toks[:, n_gen - 2:n_gen - 1])
+        h = L.rmsnorm(lp0["norm_attn"], x)
+        hd = cfg.resolved_head_dim
+        q = (h @ lp0["attn"]["w_q"]).reshape(b, 1, cfg.num_heads, hd)
+        q = L.apply_rope(q, torch.tensor([qp], device=device),
+                         cfg.rope_theta)
+        ck, cv, cpos = cache["k"][0], cache["v"][0], cache["pos"][0]
+        q_pos = torch.full((b,), qp, dtype=torch.int32, device=device)
+        check(int(cpos.max()) == qp, f"cache holds {int(cpos.max())}, "
+              f"the last step wrote {qp}")
+
+        def model_attn():
+            return L.sdpa(q, ck, cv, q_pos=q_pos[:, None], k_pos=cpos,
+                          causal=True, window=cfg.sliding_window,
+                          cast_f32=cfg.attn_cast_f32)[:, 0]
+
+        def kernel():
+            return da.decode_attention_bhsd(
+                q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2), cpos,
+                q_pos, window=cfg.sliding_window)
+
+        # the model's attention on the same values in f32, not rounded
+        want = L.sdpa(q.float(), ck.float(), cv.float(), q_pos=q_pos[:, None],
+                      k_pos=cpos, causal=True, window=cfg.sliding_window,
+                      cast_f32=cfg.attn_cast_f32)[:, 0]
+        got = kernel()
+        torch.cuda.synchronize()
+        err, rel = hold(torch, "decode", got, want, "decode kernel vs the "
+                        "model's decode attention on the live cache")
+        t_kernel = device_ms(torch, kernel)
+        t_model = device_ms(torch, model_attn, reps=5, trials=20)
+        bound, _ = _decode_bound(q[:, 0], ck.transpose(1, 2), cpos, q_pos)
+    n_valid = int((cpos >= 0).sum()) // b
+    print(f"[serve] decode kernel vs the model's sdpa on layer 0 of the "
+          f"live cache ({n_valid} of {cpos.shape[1]} slots filled, bf16): "
+          f"err={err:.3e} row rel={rel:.3e}; kernel {t_kernel * 1e3:.2f} us, "
+          f"model sdpa {t_model * 1e3:.2f} us, bound {bound * 1e3:.2f} us")
+    decode_profile(torch, mods, res)
+    return res.prefill_ms, res.decode_ms, launches
+
+
+def _union_us(spans):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def decode_profile(torch, mods, res, steps=8):
+    """A few more decode steps on the live cache under ``torch.profiler``:
+    the card's busy and idle shares of the wall clock, and the kernels
+    launched per token."""
+    import tempfile
+    model = mods.build_model(res.cfg)
+    cache, toks = res.cache, res.tokens[:, -1:]
+    pos = res.prompts.shape[1] + res.tokens.shape[1] - 1
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with torch.inference_mode():
+        logits, cache = model.decode_step(res.params, cache, toks, pos)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        try:
+            prof.start()
+        except RuntimeError as e:      # a card without profiler support
+            print(f"[serve] decode profile not measured: the profiler did "
+                  f"not start ({e})")
+            return
+        try:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = model.decode_step(res.params, cache, toks,
+                                                  pos + 1 + i)
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            prof.stop()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decode_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                       "gpu_memset")]
+    if not dev:
+        print("[serve] decode profile: the profiler recorded no device "
+              "activity; busy share not measured")
+        return
+    busy = _union_us(dev)
+    by_name = collections.Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            by_name[e.get("name", "?")[:48]] += e["dur"]
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    # the serve loop's own ms/token, measured without the profiler
+    plain_us = res.decode_ms * 1e3
+    print(f"[serve] decode profile, {steps} steps under torch.profiler: "
+          f"{wall_us / steps / 1e3:.2f} ms/token wall, card busy "
+          f"{busy / steps / 1e3:.2f} ms/token ({busy / wall_us:.1%}; "
+          f"{busy / steps / plain_us:.1%} of the unprofiled "
+          f"{res.decode_ms:.2f} ms/token); {n_kernels / steps:.0f} kernels "
+          f"per token; most device time: " + ", ".join(
+              f"{name} {us / steps / 1e3:.2f} ms"
+              for name, us in by_name.most_common(5)))
+
+
+def phase_score(torch, fa, da, mods, *, reduce=False, device="cuda"):
+    """The flash kernel's path: ``loss`` of yi-6b under
+    ``attn_impl="pallas"`` on two users' 4,096-token streams (the seeds of
+    ``examples/serve_personalized.py``), against ``attn_impl="xla"``."""
+    import numpy as np
+    cfg = mods.get_config("yi_6b")
+    seq = 4096
+    if reduce:
+        cfg, seq = cfg.reduced(), 96
+    model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model_p.init(torch.Generator(device=device).manual_seed(0))
+    streams = np.stack([mods.synthetic_lm_corpus(seq + 1,
+                                                 vocab=cfg.vocab_size,
+                                                 seed=s) for s in (10, 11)])
+    toks = torch.from_numpy(streams).to(device)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    # each flash call on the path, kept to hold it against the plain
+    # version on its own inputs afterwards
+    calls = []
+    flash = fa.flash_attention
+
+    def recording(q, k, v, *, causal=True, window=0):
+        out = flash(q, k, v, causal=causal, window=window)
+        calls.append((q, k, v, causal, window, out))
+        return out
+
+    fa.flash_attention = recording
+    try:
+        with torch.inference_mode():
+            fa.LAUNCHES = da.LAUNCHES = 0
+            sync()
+            t0 = time.perf_counter()
+            loss_p, _ = model_p.loss(params, batch)
+            sync()
+            t_p = time.perf_counter() - t0
+            launches = {"flash": fa.LAUNCHES, "decode": da.LAUNCHES}
+    finally:
+        fa.flash_attention = flash
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        loss_x, _ = model_x.loss(params, batch)
+        sync()
+        t_x = time.perf_counter() - t0
+        layer_rel = _hold_path_calls(torch, fa, calls)
+        del calls
+        logits_x = model_x.predict(params, batch)
+        logit_rel = _logit_row_rel(model_p.predict(params, batch), logits_x)
+        # planted fault: flash with the causal mask dropped on every layer
+        fa.flash_attention = (lambda q, k, v, *, causal=True, window=0:
+                              flash(q, k, v, causal=False, window=window))
+        try:
+            logits_f = model_p.predict(params, batch)
+        finally:
+            fa.flash_attention = flash
+        fault_rel = _logit_row_rel(logits_f, logits_x)
+        loss_f = float(mods.layers.cross_entropy(logits_f, batch["targets"]))
+        del logits_f, logits_x
+    loss_p, loss_x = float(loss_p), float(loss_x)
+    rel = abs(loss_p - loss_x) / abs(loss_x)
+    rel_f = abs(loss_f - loss_x) / abs(loss_x)
+    print(f"[score] {cfg.name} loss on 2 x {seq} tokens: pallas "
+          f"{loss_p:.6f} ({t_p * 1e3:.1f} ms, first call), xla "
+          f"{loss_x:.6f} ({t_x * 1e3:.1f} ms); rel diff {rel:.2e} (rtol "
+          f"{SCORE_LOSS_RTOL:.0e}); launches {launches}")
+    print(f"[score] each flash call on the path vs plain: max row rel "
+          f"{layer_rel:.3e} (limit {BF16_ROW_RTOL['flash']:.0e}); logits, "
+          f"pallas vs xla: max token row rel {logit_rel:.3e} (limit "
+          f"{SCORE_LOGIT_ROW_RTOL:.0e})")
+    print(f"[control] score, planted fault 'causal mask dropped': logits "
+          f"max token row rel {fault_rel:.3e}, loss {loss_f:.6f} (rel diff "
+          f"{rel_f:.2e})")
+    check(math.isfinite(loss_p) and rel <= SCORE_LOSS_RTOL,
+          f"pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+    check(math.isfinite(logit_rel) and logit_rel <= SCORE_LOGIT_ROW_RTOL,
+          f"pallas logits vs xla: max token row rel {logit_rel:.3e}")
+    check(fault_rel > SCORE_LOGIT_ROW_RTOL,
+          f"the planted fault passes the logits check ({fault_rel:.3e}): "
+          f"it cannot see it")
+    if device == "cuda":
+        check(launches["flash"] == cfg.num_layers,
+              f"the scoring forward launched flash {launches['flash']} "
+              f"times, not once per layer ({cfg.num_layers})")
+        print(f"[score] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def _hold_path_calls(torch, fa, calls):
+    """Each recorded flash call against the plain version in f32 on its
+    own inputs (model layout [B, L, H, D]); the largest row rel error."""
+    worst = 0.0
+    for i, (q, k, v, causal, window, out) in enumerate(calls):
+        want = fa.attention_plain(*(t.float().transpose(1, 2)
+                                    for t in (q, k, v)),
+                                  causal=causal, window=window)
+        _, rel = hold(torch, "flash", out.transpose(1, 2), want,
+                      f"flash call {i} on the scoring path vs plain")
+        worst = max(worst, rel)
+    check(len(calls) > 0, "no flash call on the scoring path")
+    return worst
+
+
+def _logit_row_rel(got, want):
+    """Max over tokens of ||got - want|| / ||want|| over the vocabulary,
+    one batch row at a time."""
+    return max(attn_errors(g, w.float())[1] for g, w in zip(got, want))
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import ExperimentConfig, FLConfig
     from repro_torch.configs import get_config
     from repro_torch.data import partition_noniid, synthetic_mnist
+    from repro_torch.data.synthetic import synthetic_lm_corpus
     from repro_torch.fl.engine import SimulationEngine
     from repro_torch.fl.simulation import run_simulation
+    from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.models import layers
     from repro_torch.obs.trace import Tracer
-    from repro_torch.utils.tree import from_numpy_tree, tree_leaves
+    from repro_torch.utils.tree import from_numpy_tree, tree_leaves, tree_map
     return types.SimpleNamespace(**locals())
+
+
+def timed(name, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -380,32 +887,62 @@ def main():
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import stale_aggregate as agg
 
-    phase_environment(torch)
-    phase_build(agg)
+    t_start = time.perf_counter()
+    timed("environment", phase_environment, torch)
+    timed("build", phase_build, [agg, fa, da])
     mods = import_port()
     # the main path's shapes: mnist_dnn's N with the server's close (C = A
     # = 5), the engine's padded bucket (8) and the scale point (128); one
     # large ragged N
-    rows = phase_kernel_vs_plain(
-        torch, agg, [(79_510, 1), (79_510, 5), (79_510, 8), (79_510, 128),
-                     (1_000_003, 16)])
-    launches, seen = phase_main_path(torch, agg, mods)
-    phase_scale(torch, agg, mods)
-    phase_golden(torch, mods)
+    rows = timed("kernel vs plain (Eq. 8)", phase_kernel_vs_plain, torch,
+                 agg, [(79_510, 1), (79_510, 5), (79_510, 8),
+                       (79_510, 128), (1_000_003, 16)])
+    attn = timed("kernel vs plain (attention)", phase_attention_vs_plain,
+                 torch, fa, da)
+    launches, seen = timed("main path (slice 1)", phase_main_path, torch,
+                           agg, mods)
+    timed("scale point", phase_scale, torch, agg, mods)
+    timed("golden", phase_golden, torch, mods)
+    timed("serve", phase_serve, torch, fa, da, mods,
+          ["--full", "--batch", "4", "--prompt-len", "2048", "--gen", "32",
+           "--cache-len", "4096"])
+    torch.cuda.empty_cache()
+    timed("serve (CLI defaults)", mods.serve.main, ["--full"])
+    torch.cuda.empty_cache()
+    score_launches = timed("score", phase_score, torch, fa, da, mods)
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in JAX or the JAX package")
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s")
 
-    # the kernel's line reports the shape the main path launched most
+    # the Eq.-8 line reports the shape the main path launched most
     shape = max(seen, key=seen.get) if seen else (79_510, 5)
     row = rows.get(shape) or rows[(79_510, 5)]
-    print(json.dumps({"kernels": [{
-        "name": "stale_aggregate_flat", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/stale_aggregate.cu",
-        "replaces": "src/repro/kernels/stale_aggregate.py:50",
-        "launches": launches, "shape": list(shape), **row}]}))
+    print(json.dumps({"kernels": [
+        {"name": "stale_aggregate_flat", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/stale_aggregate.cu",
+         "replaces": "src/repro/kernels/stale_aggregate.py:50",
+         "launches": launches, "shape": list(shape), "dtype": "float32",
+         **row},
+        {"name": "flash_attention_bhld", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:75",
+         "launches": score_launches["flash"],
+         "shape": list(FLASH_SCORE_SHAPE), "dtype": "bfloat16",
+         **attn[("flash", torch.bfloat16, FLASH_SCORE_SHAPE)]},
+        {"name": "decode_attention_bhsd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:65",
+         "launches": score_launches["decode"],
+         "path": "kernel API only: no model calls it, as in the JAX "
+                 "package",
+         "shape": list(DECODE_SHAPE), "dtype": "bfloat16",
+         **attn[("decode", torch.bfloat16)]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""Config registry of the port: the paper's own models.
+"""Config registry of the port: the paper's own models and ``yi_6b``.
 
-The LM zoo's configs (``starcoder2_15b`` … ``recurrentgemma_2b``) are not
+``yi_6b`` is a literal copy of the JAX package's ``configs/yi_6b.py``.  The
+rest of the LM zoo (``starcoder2_15b`` … ``recurrentgemma_2b``) is not
 ported yet; asking for one raises ``NotImplementedError`` (ROADMAP queue 1,
 model zoo).
 """
@@ -23,11 +24,28 @@ CONFIGS = {
         name="char_lstm", family="small", num_layers=1, d_model=256,
         vocab_size=80, dtype="float32",
         source="paper Sec. VI-A (Shakespeare), LEAF benchmark"),
+    # Yi-6B — dense llama-arch, GQA (32H/4KV). [arXiv:2403.04652]
+    "yi_6b": ModelConfig(
+        name="yi-6b",
+        family="dense",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=4,
+        d_ff=11008,
+        vocab_size=64000,
+        max_seq_len=4096,
+        attention="gqa",
+        rope_theta=5e6,
+        activation="silu",
+        long_context_window=4096,
+        source="arXiv:2403.04652",
+    ),
 }
 
 _LM_ZOO = ("starcoder2_15b", "mixtral_8x22b", "deepseek_67b", "mamba2_370m",
            "musicgen_large", "llama32_vision_11b", "deepseek_v2_236b",
-           "nemotron4_15b", "yi_6b", "recurrentgemma_2b")
+           "nemotron4_15b", "recurrentgemma_2b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -6,7 +6,8 @@
 ``src/repro/kernels/stale_aggregate.py::stale_aggregate_flat``: a CUDA C++
 kernel for Hopper (``csrc/stale_aggregate.cu``), built with ``nvcc`` for
 ``sm_90a`` at first use into ``build/`` at the repository root (keyed by a
-hash of the source) and bound through ``ctypes``.  It is bound by bytes:
+hash of the source, by ``kernels/_build.py``) and bound through
+``ctypes``.  It is bound by bytes:
 ``(C+2)·N·4`` over the card's 3.35 TB/s; the source's header note gives the
 design.  For a tensor on the CPU the wrapper runs ``stale_aggregate_plain``,
 the same c-ordered f32 loop in plain torch; for a CUDA tensor it launches
@@ -23,31 +24,16 @@ On top sit the tree entry points the protocol code shares:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._build import CSRC, build_library
 from repro_torch.utils.tree import TreeFlattener, tree_map, tree_stack
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "stale_aggregate.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = CSRC / "stale_aggregate.cu"
 
 LAUNCHES = 0          # kernel launches (not plain-version calls)
 _FN = None            # the loaded C entry point
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the stale_aggregate kernel is "
-                           "built from csrc/ with the CUDA toolkit")
-    return nvcc
 
 
 def build() -> str:
@@ -55,20 +41,8 @@ def build() -> str:
     it.  Returns the compiler's log (``-Xptxas -v``: registers, spills),
     empty when the library was already built."""
     global _FN
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"stale_aggregate-{tag}.so"
-    log = ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-        log = proc.stdout + proc.stderr
-    fn = ctypes.CDLL(str(lib_path)).stale_aggregate_f32
+    lib, log = build_library(SOURCE)
+    fn = lib.stale_aggregate_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

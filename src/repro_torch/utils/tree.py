@@ -75,10 +75,24 @@ def tree_to(tree: Any, device) -> Any:
     return tree_map(lambda x: torch.as_tensor(x, device=device), tree)
 
 
-def from_numpy_tree(tree: Any, device="cuda") -> Dict[str, Any]:
+def _leaf_from_numpy(arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        # JAX's bf16 (ml_dtypes) has no torch counterpart in numpy: carry
+        # the bits
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.tensor(arr)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_numpy_tree(tree: Any, device="cuda", dtype=None) -> Dict[str, Any]:
     """The JAX package's params as numpy arrays (nested dict, or a flat dict
     keyed by ``/``-joined paths as saved in an ``.npz``) → the port's
-    params: same names, same layouts, float32 tensors on ``device``."""
+    params: same names, same layouts, tensors on ``device``.  Floating
+    leaves keep their dtype (bf16 included) or are cast to ``dtype``."""
     if not isinstance(tree, dict):
         raise TypeError(f"expected a dict of arrays, got {type(tree)}")
     nested: Dict[str, Any] = {}
@@ -87,9 +101,9 @@ def from_numpy_tree(tree: Any, device="cuda") -> Dict[str, Any]:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         val = tree[key]
-        node[parts[-1]] = (from_numpy_tree(val, device)
+        node[parts[-1]] = (from_numpy_tree(val, device, dtype)
                            if isinstance(val, dict) else
-                           torch.tensor(np.asarray(val), device=device))
+                           _leaf_from_numpy(val, device, dtype))
     return nested
 
 

@@ -89,6 +89,6 @@ def test_numpy_tree_round_trip():
 
 def test_unported_families_name_the_roadmap_queue():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        get_config("yi_6b")
+        get_config("mixtral_8x22b")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(ref_get_config("yi_6b"))
+        build_model(ref_get_config("mixtral_8x22b"))

@@ -329,7 +329,10 @@ import repro_torch.core.server, repro_torch.data.partition
 import repro_torch.data.synthetic, repro_torch.fl.algorithms
 import repro_torch.fl.client, repro_torch.fl.driver, repro_torch.fl.engine
 import repro_torch.fl.simulation, repro_torch.kernels.stale_aggregate
+import repro_torch.kernels._build, repro_torch.kernels.flash_attention
+import repro_torch.kernels.decode_attention, repro_torch.launch.serve
 import repro_torch.models.registry, repro_torch.models.small
+import repro_torch.models.layers, repro_torch.models.transformer
 import repro_torch.obs.trace, repro_torch.utils.tree
 import repro_torch.wireless.channel, repro_torch.wireless.timing
 bad = [m for m in sys.modules
