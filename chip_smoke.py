@@ -14,8 +14,13 @@ and each prints its seconds:
 3. kernel vs plain: each kernel against its plain torch version on the
    card at the main paths' shapes, timed with CUDA events beside the
    library yardstick and the byte/operation bound (Eq. 8 in f32; flash
-   and decode attention in bf16, the working type, and in f32).  Each bf16
-   attention check is also shown a planted fault, which it must reject;
+   and decode attention in bf16, the working type, and in f32; the SSD
+   chunk in f32 at the mamba2 scoring and prefill shapes; fused Adam on
+   mamba2's in_proj leaf with bf16 p, on an f32 leaf and a ragged N; a
+   working set smaller than L2 is timed with L2 flushed before each call).
+   Each bf16 attention check, the SSD check (twice: the j <= i mask
+   dropped, the diagonal dropped) and the Adam check are also shown a
+   planted fault, which they must reject;
 4. main path of slice 1: ``run_simulation(device="cuda")`` on the
    quickstart config (mnist_dnn at full width, 20 UEs, A = 5), batched and
    then sequential;
@@ -32,7 +37,24 @@ and each prints its seconds:
    layer — against ``attn_impl="xla"`` on the same params: the losses,
    each token's logits, and each flash call held against the plain
    version on its own inputs; flash with the causal mask dropped must
-   fail the logits check.
+   fail the logits check;
+9. score mamba2: full-width mamba2-370m ``loss`` (bf16) with
+   ``attn_impl="pallas"`` on the same two streams — the SSD kernel's path,
+   one launch per layer (48), each call held against the plain version on
+   its own inputs — against ``attn_impl="xla"``: the losses, each layer's
+   output on the same input, and every token's logits end to end on an
+   f32 copy of the params; the SSD with the j <= i mask dropped, and with
+   its diagonal dropped, must fail the layer and logits checks;
+10. serve mamba2: ``repro_torch.launch.serve --arch mamba2_370m --full``
+   (batch 4, prompt 2,048, 32 tokens), then the SSD kernel against the
+   plain version on layer 0's live prefill inputs;
+11. train mamba2: ``launch/train_e2e``'s round loop on full-width
+   mamba2-370m (bf16, ``attn_impl="xla"``; 4 cohorts, A 2, S 2, batch 4,
+   seq 256) with the server Adam for 3 rounds — the fused Adam kernel's
+   path, one launch per leaf (12) a round, held against the reference's
+   plain Adam math on the first aggregate that holds gradients — then one
+   β-SGD round through the Eq.-8 kernel on the mixed bf16/f32 tree, then
+   ``launch.train --mode scale --arch mamba2_370m --steps 3``.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line.
@@ -84,11 +106,18 @@ def check(cond, msg):
 # timing on the card
 # ---------------------------------------------------------------------------
 
-def device_ms(torch, fn, *, reps=20, trials=50):
+L2_BYTES = 50 * 2**20                          # the H100's L2
+
+
+def device_ms(torch, fn, *, reps=20, trials=50, flush_l2=False):
     """Median over ``trials`` of the per-call device time of ``reps``
     back-to-back calls, in ms.  A sleep kernel queued first holds the
     stream until every call is enqueued, so host launch cost is hidden and
-    the events measure the card's own execution."""
+    the events measure the card's own execution.  With ``flush_l2`` each
+    call is timed alone after a 4 x L2 buffer is read (not written: dirty
+    lines left in L2 would be written back inside the timed call), so a
+    working set that fits in L2 is read from HBM as a byte bound
+    assumes."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -101,8 +130,21 @@ def device_ms(torch, fn, *, reps=20, trials=50):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     out = []
+    if flush_l2:
+        flush = torch.ones(4 * L2_BYTES // 4, device="cuda")
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for _ in range(trials):
         torch.cuda._sleep(sleep_cycles)
+        if flush_l2:
+            for s, e in pairs:
+                flush.sum()
+                s.record()
+                fn()
+                e.record()
+            torch.cuda.synchronize()
+            out.append(sum(s.elapsed_time(e) for s, e in pairs) / reps)
+            continue
         start.record()
         for _ in range(reps):
             fn()
@@ -853,19 +895,719 @@ def _logit_row_rel(got, want):
     return max(attn_errors(g, w.float())[1] for g, w in zip(got, want))
 
 
+# ---------------------------------------------------------------------------
+# slice 3: Mamba-2 (SSD chunk kernel) scored, served and trained with the
+# semi-synchronous step and a server Adam (fused Adam kernel)
+# ---------------------------------------------------------------------------
+
+# SSD chunk, kernel vs plain, both f32 on the same inputs: each of the four
+# outputs held relative to its own scale, max |got - want| / max |want|.
+# The kernel sums cum = cumsum(dt * a) serially, torch.cumsum does not, and
+# exp(cum_i - cum_j) turns cum's rounding (|cum| reaches ~4e3 at a = -16)
+# into relative error.
+SSD_RTOL = 5e-4
+SSD_SCORE_SHAPE = (2, 16, 256, 32, 64, 128)    # B, NC, Q, H, P, N: 2 x 4,096
+SSD_PREFILL_SHAPE = (4, 8, 256, 32, 64, 128)   # serve: 4 x 2,048
+# Scoring mamba2-370m, pallas against xla.  In bf16: the loss (mean over
+# 8,192 tokens; it read 2.9e-4 on an NVIDIA H100 80GB HBM3 at 700 W) and
+# each layer's output on the same input, per token row (4.0e-3: one bf16
+# rounding of the output is up to 2^-8 of it).  Every token's logits end to
+# end on an f32 copy of the params (6.2e-3, where a 1e-6 perturbation of
+# each scan's output reads 3.1e-3 and the diagonal dropped 1.47); in bf16 at
+# this random init that perturbation alone reads 0.68, the kernel 0.78.
+MAMBA_LOSS_RTOL = 1e-3
+MAMBA_LAYER_ROW_RTOL = 1e-2
+MAMBA_F32_LOGIT_ROW_RTOL = 2e-2
+ADAM_LEAF = (48, 1024, 4384)                   # mamba2-370m's in_proj
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
+
+
+def scaled_err(got, want):
+    """(max |got - want|, that over max |want|); NaN or inf when either
+    holds a value that is not finite."""
+    err = (got.float() - want.float()).abs().max()
+    return float(err), float(err / want.float().abs().max().clamp_min(
+        1e-30))
+
+
+def hold_ssd(torch, got, want, what):
+    """The kernel's four outputs against the plain version's; returns (max
+    abs error of y, max scaled error over the outputs)."""
+    worst = 0.0
+    for name, g, w in zip(("y", "states", "chunk_decay", "in_decay"), got,
+                          want):
+        check(g.shape == w.shape, f"{what}: {name} {tuple(g.shape)} vs "
+              f"{tuple(w.shape)}")
+        err, rel = scaled_err(g, w)
+        check(math.isfinite(rel) and rel <= SSD_RTOL,
+              f"{what}: {name} max abs {err:.3e}, scaled {rel:.3e} (limit "
+              f"{SSD_RTOL:.0e})")
+        worst = max(worst, rel)
+    return scaled_err(got[0], want[0])[0], worst
+
+
+def ssd_unmasked(torch, x, dt, a, b, c):
+    """y_intra of the plain version with the j <= i mask dropped: the
+    planted fault (exp of cum_i - cum_j > 0 overflows, so it is not even
+    finite)."""
+    cum = torch.cumsum((dt * a).movedim(-1, -2), dim=-1)
+    lmat = torch.exp(cum[..., :, None] - cum[..., None, :])
+    scores = torch.einsum("bzin,bzjn->bzij", c, b)
+    return torch.einsum("bzhij,bzjhp->bzihp", scores[:, :, None] * lmat,
+                        x * dt[..., None])
+
+
+def _ssd_inputs(torch, shape, seed):
+    """Inputs shaped like the model's: dt = softplus(N(0, 1)), a = -exp(A_log)
+    = -linspace(1, 16, H) as the model initialises it."""
+    b, nc, q, h, p, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda")
+
+    x = randn(b, nc, q, h, p)
+    dt = torch.nn.functional.softplus(randn(b, nc, q, h))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    return x, dt, a, randn(b, nc, q, n), randn(b, nc, q, n)
+
+
+def ssd_work(shape):
+    """(bytes, operations over the (i, j <= i) pairs, operations over all
+    (i, j) pairs as the TPU kernel computes them) for one ``ssd_chunk``."""
+    b, nc, q, h, p, n = shape
+    bz = b * nc
+    nbytes = 4 * (2 * bz * q * h * p + bz * q * h + h + 2 * bz * q * n
+                  + bz * h * p * n + bz * h + bz * h * q)
+    states = 2 * h * p * n * q
+
+    def per_chunk(pairs):
+        # scores c_i.b_j, the weight S * exp * dt per head, y over P
+        return 2 * n * pairs + 3 * h * pairs + 2 * h * p * pairs + states
+
+    return (nbytes, bz * per_chunk(q * (q + 1) // 2),
+            bz * per_chunk(q * q))
+
+
+def phase_ssd_vs_plain(torch, ssd):
+    rows = {}
+    for shape in (SSD_SCORE_SHAPE, SSD_PREFILL_SHAPE):
+        args = _ssd_inputs(torch, shape, seed=sum(shape))
+        got = ssd.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        want = ssd.ssd_chunk_plain(*args)
+        err, rel = hold_ssd(torch, got, want, f"SSD kernel vs plain {shape}")
+        # two planted faults on y: the mask dropped overflows to NaN; the
+        # diagonal dropped stays finite, so it tests the limit itself
+        for fname, fault_fn in (
+                ("j <= i mask dropped", ssd_unmasked),
+                ("diagonal j = i dropped",
+                 lambda torch, *xs: ssd_diagonal_dropped(torch, ssd, *xs))):
+            _, fault = scaled_err(fault_fn(torch, *args), want[0])
+            check(not fault <= SSD_RTOL, f"planted fault '{fname}' reads "
+                  f"{fault:.3e}, inside {SSD_RTOL:.0e}")
+            print(f"[control] ssd, planted fault '{fname}': y scaled error "
+                  f"{fault:.3e}, rejected")
+        del got, want
+        torch.cuda.empty_cache()
+        t_kernel = device_ms(torch, lambda: ssd.ssd_chunk(*args), reps=3,
+                             trials=10)
+        t_plain = device_ms(torch, lambda: ssd.ssd_chunk_plain(*args),
+                            reps=1, trials=3)
+        nbytes, ops, ops_all = ssd_work(shape)
+        bound, by = _bound(nbytes, ops, H100_F32_FLOPS)
+        rows[shape] = dict(max_abs_err=err, max_scaled_err=rel, ms=t_kernel,
+                           plain_ms=t_plain, library_ms=None, bound_ms=bound,
+                           bound_by=by)
+        print(f"[ssd] chunk B,NC,Q,H,P,N={shape} f32: y err={err:.3e}, "
+              f"scaled (all outputs) {rel:.3e}  kernel={t_kernel:.3f} ms  "
+              f"plain={t_plain:.3f} ms  library: none  bound={bound:.3f} ms "
+              f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP over "
+              f"j <= i, {ops_all / 1e9:.2f} over all pairs; "
+              f"{ops / t_kernel / 1e9:.1f} TFLOP/s)")
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element of ``x`` (f32)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def adam_close(torch, got, want, p_old=None):
+    """(p, m, v) against (p, m, v): bf16 p within one bf16 ulp, f32 p within
+    1e-6 relative, m and v within 1e-6 relative.  Against math that rounds
+    in another order (``p_old`` given), p may also differ by 2^-20 of the
+    old |p|: p - lr * u cancels where lr * u ~ p, and the two orders' f32
+    roundings of u, a few ulps of |p|, then stand alone.  Returns (ok, max
+    abs error of p)."""
+    gp, gm, gv = got
+    wp, wm, wv = want
+    dp = (gp.float() - wp.float()).abs()
+    extra = 0.0 if p_old is None else 2.0 ** -20 * p_old.float().abs()
+    if gp.dtype == torch.bfloat16:
+        ok = bool((dp <= bf16_ulp(torch, wp.float()) + extra).all())
+    else:
+        ok = bool((dp <= 1e-6 * wp.abs() + 1e-30 + extra).all())
+    for g, w in ((gm, wm), (gv, wv)):
+        ok = ok and bool(((g - w).abs() <= 1e-6 * w.abs() + 1e-30).all())
+    return ok, float(dp.max())
+
+
+def _adam_leaf(torch, n, p_dtype, g_dtype, seed):
+    """A leaf like in_proj's (N(0, 1/32) weights), its moments after a few
+    steps and a small gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(scale):
+        return torch.randn(n, generator=g, device="cuda") * scale
+
+    return (randn(1 / 32).to(p_dtype), randn(1e-4), randn(1e-4).square(),
+            randn(1e-3).to(g_dtype))
+
+
+ADAM_CASES = (
+    # name, N, p dtype, g dtype
+    ("in_proj, g f32 (the path's)", math.prod(ADAM_LEAF), "bfloat16",
+     "float32"),
+    ("in_proj, g bf16", math.prod(ADAM_LEAF), "bfloat16", "bfloat16"),
+    ("A_log (f32 leaf)", 48 * 32, "float32", "float32"),
+    ("ragged f32", 1_000_003, "float32", "float32"),
+)
+
+
+def phase_adam_vs_plain(torch, adam):
+    rows = {}
+    for name, n, p_dt, g_dt in ADAM_CASES:
+        p, m, v, grad = _adam_leaf(torch, n, getattr(torch, p_dt),
+                                   getattr(torch, g_dt), seed=n % 997)
+        lr = torch.tensor(1e-3, device="cuda")
+        t = torch.tensor(1, dtype=torch.int32, device="cuda")
+
+        scal = adam.adam_scalars(lr, t, ADAM_B1, ADAM_B2, "cuda")
+
+        def run():
+            # the launch alone: [lr, bc1, bc2] is made once a step for the
+            # whole tree (fused_adam_tree), so it is not timed here
+            return adam._update(p, m, v, grad, scal, b1=ADAM_B1, b2=ADAM_B2,
+                                eps=ADAM_EPS)
+
+        got = adam.fused_adam_flat(p, m, v, grad, lr=lr, t=t, b1=ADAM_B1,
+                                   b2=ADAM_B2, eps=ADAM_EPS)
+        torch.cuda.synchronize()
+        want = adam.fused_adam_plain(p, m, v, grad, scal, b1=ADAM_B1,
+                                     b2=ADAM_B2, eps=ADAM_EPS)
+        ok, err = adam_close(torch, got, want)
+        check(ok and got[0].dtype == p.dtype, f"fused Adam vs plain ({name}):"
+              f" max abs p error {err:.3e}, outside the limits")
+        no_bc = torch.stack([scal[0], torch.ones_like(scal[1]),
+                             torch.ones_like(scal[2])])
+        fault = adam.fused_adam_plain(p, m, v, grad, no_bc, b1=ADAM_B1,
+                                      b2=ADAM_B2, eps=ADAM_EPS)
+        bad, fault_err = adam_close(torch, fault, want)
+        check(not bad, f"planted fault 'bias corrections dropped' passes the "
+              f"Adam check ({name})")
+        print(f"[control] adam ({name}), planted fault 'bias corrections "
+              f"dropped': max abs p error {fault_err:.3e}, rejected")
+        del got, want, fault
+        pe, ge = p.element_size(), grad.element_size()
+        nbytes = n * (2 * pe + ge + 16)
+        # a working set that fits in L2 is timed from HBM all the same
+        flush = nbytes < L2_BYTES
+        t_kernel = device_ms(torch, run, reps=3, trials=10, flush_l2=flush)
+        t_plain = device_ms(torch, lambda: adam.fused_adam_plain(
+            p, m, v, grad, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS),
+            reps=1, trials=5, flush_l2=flush)
+        # yardstick: one torch.optim.Adam(fused=True) step on an f32 copy
+        # (PyTorch keeps m and v in the parameter's type, so at bf16 it is
+        # not the same function)
+        p32 = torch.nn.Parameter(p.float())
+        p32.grad = grad.float()
+        yard = torch.optim.Adam([p32], lr=1e-3, betas=(ADAM_B1, ADAM_B2),
+                                eps=ADAM_EPS, fused=True)
+        yard.step()
+        t_lib = device_ms(torch, yard.step, reps=3, trials=10, flush_l2=flush)
+        del yard, p32
+        bound, by = _bound(nbytes, 14 * n, H100_F32_FLOPS)
+        rows[name] = dict(max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
+                          library_ms=t_lib, bound_ms=bound, bound_by=by,
+                          n=n, p_dtype=p_dt, g_dtype=g_dt, l2_flushed=flush)
+        print(f"[adam] {name}: N={n} p {p_dt} g {g_dt}: max abs p err "
+              f"{err:.3e}  kernel={t_kernel:.3f} ms  plain={t_plain:.3f} ms  "
+              f"torch.optim.Adam(fused=True) f32={t_lib:.3f} ms  "
+              f"bound={bound:.3f} ms ({by}; {nbytes / 1e9:.3f} GB; "
+              f"{nbytes / t_kernel / 1e6:.0f} GB/s"
+              f"{'; L2 flushed before each call' if flush else ''})")
+        del p, m, v, grad
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_diagonal_dropped(torch, ssd, x, dt, a, b, c):
+    """y_intra of the plain version without its j = i terms (a planted
+    fault that stays finite)."""
+    y = ssd.ssd_chunk_plain(x, dt, a, b, c)[0]
+    return y - (c * b).sum(-1)[..., None, None] * dt[..., None] * x
+
+
+def _forward_with(torch, mods, model, params, tokens, scan):
+    """Logits of ``model`` with every layer's scan replaced by ``scan``."""
+    L = mods.layers
+    x = L.embed(params["embedding"], tokens)
+    for i in range(model.cfg.num_layers):
+        x = model.layer(mods.tree_map(lambda t: t[i], params["layers"]), x,
+                        scan)[0]
+    x = L.rmsnorm(params["final_norm"], x)
+    return L.unembed(params["embedding"], x)
+
+
+def _row_rel(got, want):
+    """Per-row ||got - want|| / ||want|| over the last axis (f32)."""
+    return (got.float() - want.float()).norm(dim=-1) / want.float().norm(
+        dim=-1).clamp_min(1e-30)
+
+
+def phase_score_mamba(torch, ssd, mods, *, reduce=False, device="cuda"):
+    """The SSD kernel's path: ``loss`` of mamba2-370m under
+    ``attn_impl="pallas"`` on two 4,096-token streams, against
+    ``attn_impl="xla"`` on the same params.
+
+    In bf16 at this random init the stack is chaotic: a 1e-6 relative
+    perturbation of one scan's output flips bf16 roundings that 48 layers
+    amplify into ~0.7 of a token's logits, so in bf16 the loss is held
+    end to end and every layer's output on the same input (teacher
+    forcing); every token's logits are held end to end on an f32 copy of
+    the params, where the same perturbation moves them by ~3e-3."""
+    import numpy as np
+    cfg = mods.get_config("mamba2_370m")
+    seq = 4096
+    if reduce:
+        cfg, seq = cfg.reduced(), 96
+    model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model_p.init(torch.Generator(device=device).manual_seed(0))
+    streams = np.stack([mods.synthetic_lm_corpus(seq + 1,
+                                                 vocab=cfg.vocab_size,
+                                                 seed=s) for s in (10, 11)])
+    toks = torch.from_numpy(streams).to(device)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    chunk = ssd.ssd_chunk
+    held = []
+
+    def recording(x, dt, a, b, c):
+        # each call on the path, held against the plain version on its own
+        # inputs at once (the plain version launches nothing)
+        out = chunk(x, dt, a, b, c)
+        held.append(hold_ssd(torch, out, ssd.ssd_chunk_plain(x, dt, a, b, c),
+                             f"SSD call {len(held)} on the scoring path")[1])
+        return out
+
+    def with_y(fault):
+        return lambda x, dt, a, b, c: (fault(x, dt, a, b, c),) + chunk(
+            x, dt, a, b, c)[1:]
+
+    faults = {
+        "j <= i mask dropped": with_y(
+            lambda *args: ssd_unmasked(torch, *args)),
+        "diagonal j = i dropped": with_y(
+            lambda *args: ssd_diagonal_dropped(torch, ssd, *args)),
+    }
+
+    with torch.inference_mode():
+        ssd.ssd_chunk = recording
+        try:
+            ssd.LAUNCHES = 0
+            loss_p, _ = model_p.loss(params, batch)
+            launches = ssd.LAUNCHES
+        finally:
+            ssd.ssd_chunk = chunk
+        sync()
+        t0 = time.perf_counter()
+        loss_p2, _ = model_p.loss(params, batch)
+        sync()
+        t_p = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss_x, _ = model_x.loss(params, batch)
+        sync()
+        t_x = time.perf_counter() - t0
+
+        # bf16, teacher forced: each layer on the xla path's input
+        layer_rel, fault_layer = 0.0, {k: 0.0 for k in faults}
+        x = mods.layers.embed(params["embedding"], batch["tokens"])
+        for i in range(cfg.num_layers):
+            lp = mods.tree_map(lambda t: t[i], params["layers"])
+            want = model_x.layer(lp, x, mods.ssm.ssd_chunked)[0]
+            got = model_p.layer(lp, x, ssd.ssd_chunked)[0]
+            layer_rel = max(layer_rel, float(_row_rel(got, want).max()))
+            for name, fn in faults.items():
+                ssd.ssd_chunk = fn
+                try:
+                    bad = model_p.layer(lp, x, ssd.ssd_chunked)[0]
+                finally:
+                    ssd.ssd_chunk = chunk
+                r = float(_row_rel(bad, want).max())
+                fault_layer[name] = r if math.isnan(r) else max(
+                    fault_layer[name], r)
+            x = want
+        del got, want, bad, x
+
+        # the reason for the two checks below, measured: each scan's output
+        # times (1 + 1e-6 N(0, 1)) on the xla path, end to end
+        gen = torch.Generator(device=device).manual_seed(1)
+
+        def perturbed(x, dt, a, b, c, q):
+            y, st = mods.ssm.ssd_chunked(x, dt, a, b, c, q)
+            return y * (1 + 1e-6 * torch.randn(y.shape, generator=gen,
+                                               device=y.device)), st
+
+        logits_x = model_x.predict(params, batch)
+        bf16_rel = float(_row_rel(model_p.predict(params, batch),
+                                  logits_x).max())
+        bf16_noise = float(_row_rel(_forward_with(
+            torch, mods, model_x, params, batch["tokens"], perturbed),
+            logits_x).max())
+        del logits_x
+
+        # f32 copy of the params, end to end: every token's logits
+        p32 = mods.tree_map(lambda t: t.float(), params)
+        m32 = mods.build_model(dataclasses.replace(cfg, dtype="float32"))
+        logits_x = _forward_with(torch, mods, m32, p32, batch["tokens"],
+                                 mods.ssm.ssd_chunked)
+        logit_rel = float(_row_rel(_forward_with(
+            torch, mods, m32, p32, batch["tokens"], ssd.ssd_chunked),
+            logits_x).max())
+        f32_noise = float(_row_rel(_forward_with(
+            torch, mods, m32, p32, batch["tokens"], perturbed),
+            logits_x).max())
+        fault_logit = {}
+        for name, fn in faults.items():
+            ssd.ssd_chunk = fn
+            try:
+                fault_logit[name] = float(_row_rel(_forward_with(
+                    torch, mods, m32, p32, batch["tokens"], ssd.ssd_chunked),
+                    logits_x).max())
+            finally:
+                ssd.ssd_chunk = chunk
+        del logits_x, p32
+    loss_p, loss_x = float(loss_p), float(loss_x)
+    rel = abs(loss_p - loss_x) / abs(loss_x)
+    check(float(loss_p2) == loss_p, "the pallas loss changed between calls")
+    print(f"[score] {cfg.name} loss on 2 x {seq} tokens, bf16: pallas "
+          f"{loss_p:.6f} ({t_p * 1e3:.1f} ms, second call), xla {loss_x:.6f} "
+          f"({t_x * 1e3:.1f} ms); rel diff {rel:.2e} (rtol "
+          f"{MAMBA_LOSS_RTOL:.0e}); SSD launches {launches}")
+    print(f"[score] each SSD call on the path vs plain: max scaled error "
+          f"{max(held):.3e} over {len(held)} calls (limit {SSD_RTOL:.0e}); "
+          f"each layer's bf16 output on the same input, pallas vs xla: max "
+          f"token row rel {layer_rel:.3e} (limit {MAMBA_LAYER_ROW_RTOL:.0e}); "
+          f"f32 params, every token's logits end to end: max row rel "
+          f"{logit_rel:.3e} (limit {MAMBA_F32_LOGIT_ROW_RTOL:.0e})")
+    print(f"[score] end to end, not held to a limit: bf16 logits pallas vs "
+          f"xla max token row rel {bf16_rel:.3e}; the xla path with each "
+          f"scan's output x (1 + 1e-6 N(0, 1)) against itself: bf16 "
+          f"{bf16_noise:.3e}, f32 {f32_noise:.3e}")
+    for name in faults:
+        print(f"[control] mamba score, planted fault '{name}': layer output "
+              f"max row rel {fault_layer[name]:.3e}, f32 logits max row rel "
+              f"{fault_logit[name]:.3e}")
+        check(not fault_layer[name] <= MAMBA_LAYER_ROW_RTOL
+              and not fault_logit[name] <= MAMBA_F32_LOGIT_ROW_RTOL,
+              f"planted fault '{name}' passes a scoring check")
+    check(math.isfinite(loss_p) and rel <= MAMBA_LOSS_RTOL,
+          f"pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+    check(math.isfinite(layer_rel) and layer_rel <= MAMBA_LAYER_ROW_RTOL,
+          f"a layer's output, pallas vs xla: max row rel {layer_rel:.3e}")
+    check(math.isfinite(logit_rel) and logit_rel <= MAMBA_F32_LOGIT_ROW_RTOL,
+          f"f32 logits, pallas vs xla: max token row rel {logit_rel:.3e}")
+    check(len(held) == cfg.num_layers, f"{len(held)} SSD calls on the "
+          f"scoring path, not one per layer ({cfg.num_layers})")
+    if device == "cuda":
+        check(launches == cfg.num_layers, f"the scoring forward launched the "
+              f"SSD kernel {launches} times, not {cfg.num_layers}")
+        print(f"[score] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def phase_serve_mamba(torch, ssd, mods, *, reduce=False, device="cuda"):
+    """Full-width mamba2-370m through the serve entry point; then the SSD
+    kernel against the plain version on layer 0's live prefill inputs."""
+    argv = ["--arch", "mamba2_370m", "--batch", "4", "--device", device]
+    argv += (["--prompt-len", "64", "--gen", "4"] if reduce else
+             ["--full", "--prompt-len", "2048", "--gen", "32"])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ssd.LAUNCHES = 0
+    res = mods.serve.run(argv)
+    launches = ssd.LAUNCHES
+    cfg = res.cfg
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "served tokens out of the vocabulary")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    print(f"[serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms, decode "
+          f"{res.decode_ms:.2f} ms/token, peak memory {peak:.1f} GiB; SSD "
+          f"launches on the serve path {launches} (prefill runs the model's "
+          f"own scan, as in the reference)")
+    model = mods.build_model(cfg)
+    q = cfg.ssm.chunk_size
+    with torch.inference_mode():
+        lp0 = mods.tree_map(lambda t: t[0], res.params["layers"])
+        x = mods.layers.embed(res.params["embedding"], res.prompts)
+        _, _, xs, dt, a, b, c = model.ssd_inputs(lp0, x)
+        bs, sl, h, p = xs.shape
+        n = b.shape[-1]
+        nc = sl // q
+        args = (xs.float().reshape(bs, nc, q, h, p).contiguous(),
+                dt.reshape(bs, nc, q, h).contiguous(), a.contiguous(),
+                b.float().reshape(bs, nc, q, n).contiguous(),
+                c.float().reshape(bs, nc, q, n).contiguous())
+        got = ssd.ssd_chunk(*args)
+        want = ssd.ssd_chunk_plain(*args)
+        err, rel = hold_ssd(torch, got, want, "SSD kernel vs plain on layer "
+                            "0's live prefill inputs")
+        y_k, s_k = ssd.ssd_chunked(xs.float(), dt, a, b.float(), c.float(), q)
+        y_m, s_m = mods.ssm.ssd_chunked(xs.float(), dt, a, b.float(),
+                                        c.float(), q)
+        _, rel_y = scaled_err(y_k, y_m)
+        _, rel_s = scaled_err(s_k, s_m)
+        check(rel_y <= SSD_RTOL and rel_s <= SSD_RTOL,
+              f"layer 0's scan, kernel route vs the model's own: y {rel_y:.3e}"
+              f", final state {rel_s:.3e}")
+        del got, want, y_k, y_m
+    print(f"[serve] SSD kernel vs plain on layer 0's live prefill inputs "
+          f"{tuple(args[0].shape)}: y err {err:.3e}, scaled {rel:.3e}; the "
+          f"kernel-backed scan vs the model's own: y {rel_y:.3e}, final "
+          f"state {rel_s:.3e}")
+    return res.prefill_ms, res.decode_ms, launches, peak
+
+
+def hold_adam_on_path(torch, adam, mods, opt, exp, state, mask):
+    """The server Adam's update on the path's own aggregate and state: the
+    kernel route (``optimizer.update``) leaf by leaf against the kernel's
+    plain version and against the reference's plain tree math; bias
+    corrections dropped on the largest leaf must be rejected.  Returns the
+    max abs p error against the plain version."""
+    agg_t = mods.masked_aggregate_tree(state.buffers, mask)
+    agg_t, gnorm = mods.clip_by_global_norm(agg_t, exp.train.grad_clip)
+    got, got_st = opt.update(agg_t, state.opt_state, state.params,
+                             exp.fl.beta)
+    ref, ref_st = mods.adam_update_plain(
+        agg_t, state.opt_state, state.params, exp.fl.beta, b1=ADAM_B1,
+        b2=ADAM_B2, eps=ADAM_EPS, weight_decay=0.0, state_dtype=torch.float32)
+    t = state.opt_state["t"] + 1
+    scal = adam.adam_scalars(exp.fl.beta, t, ADAM_B1, ADAM_B2,
+                             mods.tree_leaves(state.params)[0].device)
+    paths = mods.tree_paths(state.params)
+    flat = [[x.reshape(-1) for x in mods.tree_leaves(tree)] for tree in (
+        state.params, state.opt_state["m"], state.opt_state["v"], agg_t,
+        got, got_st["m"], got_st["v"], ref, ref_st["m"], ref_st["v"])]
+    worst = worst_ref = 0.0
+    for i, path in enumerate(paths):
+        p0, m0, v0, g0, gp, gm, gv, rp, rm, rv = (f[i] for f in flat)
+        want = adam.fused_adam_plain(p0, m0, v0, g0, scal, b1=ADAM_B1,
+                                     b2=ADAM_B2, eps=ADAM_EPS)
+        ok, err = adam_close(torch, (gp, gm, gv), want)
+        check(ok and gp.dtype == p0.dtype, f"server Adam on the path, leaf "
+              f"{path}: kernel vs its plain version outside the limits (max "
+              f"abs p error {err:.3e})")
+        ok, err_ref = adam_close(torch, (gp, gm, gv), (rp, rm, rv), p_old=p0)
+        check(ok, f"server Adam on the path, leaf {path}: kernel vs the "
+              f"reference's plain tree math outside the limits (max abs p "
+              f"error {err_ref:.3e})")
+        worst, worst_ref = max(worst, err), max(worst_ref, err_ref)
+        if path == "layers/in_proj":
+            no_bc = torch.stack([scal[0], torch.ones_like(scal[1]),
+                                 torch.ones_like(scal[2])])
+            fault = adam.fused_adam_plain(p0, m0, v0, g0, no_bc, b1=ADAM_B1,
+                                          b2=ADAM_B2, eps=ADAM_EPS)
+            bad, fault_err = adam_close(torch, fault, want)
+            check(not bad, "planted fault 'bias corrections dropped' passes "
+                  "the server Adam check on in_proj")
+    print(f"[train] server Adam on the path's aggregate (grad norm "
+          f"{float(gnorm):.3e} before clipping) and state, t = {int(t)}: "
+          f"kernel route vs its plain version, max abs p error {worst:.3e}; "
+          f"vs the reference's plain tree math {worst_ref:.3e} ({len(paths)} "
+          f"leaves); planted fault 'bias corrections dropped' on in_proj: "
+          f"{fault_err:.3e}, rejected")
+    return worst
+
+
+def profile_meta_gradient(torch, mods, model, exp, params, batches):
+    """One cohort's Eq.-7 meta-gradient — a quarter of a round's work — once
+    unprofiled, then under ``torch.profiler`` (device activity only, so the
+    trace stays small): its wall clock, the card's busy share (the kernels'
+    summed device time: one stream, so they do not overlap), the kernel
+    count and the kernels that take the most time."""
+    import torch.profiler as tp
+
+    def loss(p, b):
+        return model.loss(p, b)[0]
+
+    one = mods.tree_map(lambda x: x[0], batches)
+
+    def run():
+        return mods.perfed.perfed_grad(loss, params, one, exp.fl.alpha)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    prof = tp.profile(activities=[tp.ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
+    t0 = time.perf_counter()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    count = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    bsz, seq = one["outer"]["tokens"].shape
+    print(f"[train] one cohort's meta-gradient (batch {bsz} x {seq}): "
+          f"{plain_wall:.2f} s unprofiled; under torch.profiler {wall:.2f} s "
+          f"wall, card busy {busy:.3f} s ({busy / plain_wall:.1%} of the "
+          f"unprofiled wall); {count} kernels; reading the trace took "
+          f"{time.perf_counter() - t0:.1f} s; most device time: " + ", ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e6:.3f} s "
+              f"({e.count})" for e in top))
+
+
+def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
+                      device="cuda"):
+    """``train_e2e``'s round loop on mamba2-370m (bf16, attn_impl "xla":
+    the SSD kernel has no backward, as in the reference): 4 cohorts, A 2,
+    S 2, batch 4, seq 256, server Adam, 3 rounds; then one β-SGD round
+    through the Eq.-8 kernel; then ``launch.train --mode scale``."""
+    cfg = mods.get_config("mamba2_370m")
+    cohorts, part, stale, bsz, seq, rounds = 4, 2, 2, 4, 256, 3
+    if reduce:
+        cfg, bsz, seq = cfg.reduced(), 2, 64
+    e2e = mods.train_e2e
+    model = mods.build_model(cfg)
+    exp = e2e.experiment_cfg(cfg, staleness=stale, fused_agg=False)
+    opt = mods.make_optimizer("adam")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = mods.semi_sync.init_state(
+        model, torch.Generator(device=device).manual_seed(0), opt, cohorts)
+    pi = mods.greedy_schedule(mods.relative_frequencies(cohorts, "equal"),
+                              part, rounds + 1)
+    kw = dict(pi=pi, corpora=e2e.cohort_corpora(cohorts, cfg.vocab_size),
+              batch=bsz, seq=seq, device=device)
+    adam.LAUNCHES = 0
+    per_round, seconds, adam_err = [], [], None
+    for k in range(rounds):
+        if k == 2:
+            # round 2 is the first whose aggregate holds gradients (rounds
+            # 0 and 1 apply the zero-initialised buffers of cohorts 0-1 and
+            # 2-3): hold the kernel against the plain math on it first
+            before = adam.LAUNCHES
+            adam_err = hold_adam_on_path(
+                torch, adam, mods, opt, exp, state,
+                torch.as_tensor(pi[k], dtype=torch.float32, device=device))
+            adam.LAUNCHES = before      # comparison launches do not count
+        before = adam.LAUNCHES
+        state, rec = e2e.train_rounds(model, exp, opt, state,
+                                      rounds=range(k, k + 1), **kw)
+        per_round.append(adam.LAUNCHES - before)
+        seconds.append(rec[0]["seconds"])
+        print(f"[train] round {k} mask {rec[0]['mask']}: "
+              f"{rec[0]['seconds']:.2f} s, grad norm "
+              f"{float(rec[0]['metrics']['grad_norm']):.3e}, max staleness "
+              f"{int(rec[0]['metrics']['max_staleness'])}, fused Adam "
+              f"launches {per_round[-1]}")
+    with torch.no_grad():
+        eb = mods.tree_map(lambda x: x[0], e2e.round_batches(
+            kw["corpora"], 0, batch=bsz, seq=seq, device=device)["outer"])
+        loss = float(model.loss(state.params, eb)[0])
+    check(math.isfinite(loss), f"loss after {rounds} rounds is {loss}")
+    if device == "cuda":
+        check(per_round == [len(mods.tree_leaves(state.params))] * rounds,
+              f"fused Adam launches per round {per_round}, not one per leaf")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    print(f"[train] {cfg.name}, {cohorts} cohorts, A={part}, S={stale}, "
+          f"batch {bsz}, seq {seq}, server Adam: rounds "
+          f"{', '.join(f'{s:.2f}' for s in seconds)} s; loss on cohort 0's "
+          f"batch {loss:.4f}; peak memory {peak:.1f} GiB")
+    if device == "cuda":
+        profile_meta_gradient(torch, mods, model, exp, state.params,
+                              e2e.round_batches(kw["corpora"], rounds,
+                                                batch=bsz, seq=seq,
+                                                device=device))
+
+    # one β-SGD round without clipping: the fused Eq.-8 kernel on the
+    # mixed bf16/f32 tree
+    exp_f = e2e.experiment_cfg(cfg, staleness=stale, fused_agg=True)
+    sgd = mods.make_optimizer("sgd")
+    check(mods.semi_sync.uses_fused_eq8(sgd, exp_f), "--fused-agg settings "
+          "do not take the Eq.-8 path")
+    st = mods.semi_sync.SemiSyncState(state.params, sgd.init(state.params),
+                                      state.buffers, state.staleness,
+                                      state.step)
+    del state
+    before = agg.LAUNCHES
+    st, rec = e2e.train_rounds(model, exp_f, sgd, st,
+                               rounds=range(rounds, rounds + 1), **kw)
+    eq8 = agg.LAUNCHES - before
+    dtypes = sorted({str(x.dtype) for x in mods.tree_leaves(st.params)})
+    check(all(math.isfinite(float(x.float().abs().max()))
+              for x in mods.tree_leaves(st.params)), "fused round: params "
+          "not finite")
+    if device == "cuda":
+        check(eq8 == 1, f"the fused round launched the Eq.-8 kernel {eq8} "
+              f"times, not once")
+    print(f"[train] --fused-agg round {rounds} mask {rec[0]['mask']}: "
+          f"{rec[0]['seconds']:.2f} s, Eq.-8 launches {eq8} on the "
+          f"{dtypes} tree")
+    del st
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    argv = ["--mode", "scale", "--arch", "mamba2_370m", "--steps", "3",
+            "--device", device] + (["--reduce"] if reduce else [])
+    st_s, metrics = mods.train.run(argv)
+    t_scale = time.perf_counter() - t0
+    check(int(st_s.step) == 3 and math.isfinite(float(metrics["loss"])),
+          "launch.train --mode scale did not take 3 finite steps")
+    print(f"[train] launch.train --mode scale --arch mamba2_370m --steps 3: "
+          f"{t_scale:.1f} s")
+    del st_s
+    return sum(per_round), per_round, seconds, peak, adam_err, eq8
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import ExperimentConfig, FLConfig
     from repro_torch.configs import get_config
+    from repro_torch.core import perfed, semi_sync
+    from repro_torch.core.scheduler import (greedy_schedule,
+                                            relative_frequencies)
     from repro_torch.data import partition_noniid, synthetic_mnist
     from repro_torch.data.synthetic import synthetic_lm_corpus
     from repro_torch.fl.engine import SimulationEngine
     from repro_torch.fl.simulation import run_simulation
-    from repro_torch.launch import serve
+    from repro_torch.kernels.stale_aggregate import masked_aggregate_tree
+    from repro_torch.launch import serve, train, train_e2e
     from repro_torch.models import build_model
-    from repro_torch.models import layers
+    from repro_torch.models import layers, ssm
     from repro_torch.obs.trace import Tracer
-    from repro_torch.utils.tree import from_numpy_tree, tree_leaves, tree_map
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    from repro_torch.optim.optimizers import adam_update_plain
+    from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
+                                        tree_paths)
     return types.SimpleNamespace(**locals())
 
 
@@ -889,11 +1631,13 @@ def main():
     sys.path.insert(0, SRC)
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_adam as adam
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import stale_aggregate as agg
 
     t_start = time.perf_counter()
     timed("environment", phase_environment, torch)
-    timed("build", phase_build, [agg, fa, da])
+    timed("build", phase_build, [agg, fa, da, ssd, adam])
     mods = import_port()
     # the main path's shapes: mnist_dnn's N with the server's close (C = A
     # = 5), the engine's padded bucket (8) and the scale point (128); one
@@ -903,6 +1647,10 @@ def main():
                        (79_510, 128), (1_000_003, 16)])
     attn = timed("kernel vs plain (attention)", phase_attention_vs_plain,
                  torch, fa, da)
+    ssd_rows = timed("kernel vs plain (SSD chunk)", phase_ssd_vs_plain,
+                     torch, ssd)
+    adam_rows = timed("kernel vs plain (fused Adam)", phase_adam_vs_plain,
+                      torch, adam)
     launches, seen = timed("main path (slice 1)", phase_main_path, torch,
                            agg, mods)
     timed("scale point", phase_scale, torch, agg, mods)
@@ -914,6 +1662,13 @@ def main():
     timed("serve (CLI defaults)", mods.serve.main, ["--full"])
     torch.cuda.empty_cache()
     score_launches = timed("score", phase_score, torch, fa, da, mods)
+    torch.cuda.empty_cache()
+    ssd_launches = timed("score mamba2", phase_score_mamba, torch, ssd, mods)
+    torch.cuda.empty_cache()
+    timed("serve mamba2", phase_serve_mamba, torch, ssd, mods)
+    torch.cuda.empty_cache()
+    adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
+                              agg, mods)
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in JAX or the JAX package")
@@ -922,12 +1677,23 @@ def main():
     # the Eq.-8 line reports the shape the main path launched most
     shape = max(seen, key=seen.get) if seen else (79_510, 5)
     row = rows.get(shape) or rows[(79_510, 5)]
+    adam_row = dict(adam_rows[ADAM_CASES[0][0]])
+    adam_shape = [adam_row.pop(k) for k in ("n", "p_dtype", "g_dtype")]
     print(json.dumps({"kernels": [
         {"name": "stale_aggregate_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/stale_aggregate.cu",
          "replaces": "src/repro/kernels/stale_aggregate.py:50",
          "launches": launches, "shape": list(shape), "dtype": "float32",
          **row},
+        {"name": "fused_adam_flat", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
+         "replaces": "src/repro/kernels/fused_adam.py:36",
+         "launches": adam_launches,
+         "path": "server Adam of the semi-sync step, mamba2-370m, 3 rounds",
+         "shape": [adam_shape[0]],
+         "dtype": f"p {adam_shape[1]}, g {adam_shape[2]}, m/v float32",
+         "library": "torch.optim.Adam(fused=True).step() on an f32 copy",
+         **adam_row},
         {"name": "flash_attention_bhld", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:75",
@@ -942,6 +1708,15 @@ def main():
                  "package",
          "shape": list(DECODE_SHAPE), "dtype": "bfloat16",
          **attn[("decode", torch.bfloat16)]},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:52",
+         "launches": ssd_launches,
+         "path": "mamba2-370m scoring forward, one launch per layer",
+         "shape": list(SSD_SCORE_SHAPE), "dtype": "float32",
+         "library": "none: no single PyTorch call computes it",
+         "bound_ops": "j <= i pairs only",
+         **ssd_rows[SSD_SCORE_SHAPE]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
-"""Config registry of the port: the paper's own models and ``yi_6b``.
+"""Config registry of the port: the paper's own models, ``yi_6b`` and
+``mamba2_370m``.
 
-``yi_6b`` is a literal copy of the JAX package's ``configs/yi_6b.py``.  The
-rest of the LM zoo (``starcoder2_15b`` … ``recurrentgemma_2b``) is not
-ported yet; asking for one raises ``NotImplementedError`` (ROADMAP queue 1,
-model zoo).
+``yi_6b`` and ``mamba2_370m`` are literal copies of the JAX package's
+``configs/yi_6b.py`` and ``configs/mamba2_370m.py``.  The rest of the LM
+zoo (``starcoder2_15b`` … ``recurrentgemma_2b``) is not ported yet; asking
+for one raises ``NotImplementedError`` (ROADMAP queue 1, model zoo).
 """
 from __future__ import annotations
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, SSMConfig
 
 CONFIGS = {
     # 2-layer DNN with hidden size 100 for MNIST (Sec. VI-A)
@@ -41,11 +42,28 @@ CONFIGS = {
         long_context_window=4096,
         source="arXiv:2403.04652",
     ),
+    # Mamba2-370M — attention-free SSD (state-space duality).
+    # [arXiv:2405.21060]
+    "mamba2_370m": ModelConfig(
+        name="mamba2-370m",
+        family="ssm",
+        num_layers=48,
+        d_model=1024,
+        num_heads=0,
+        num_kv_heads=0,
+        d_ff=0,                 # attention-free, no separate FFN
+        vocab_size=50280,
+        max_seq_len=1048576,
+        attention="none",
+        ssm=SSMConfig(state_dim=128, head_dim=64, expand=2, chunk_size=256,
+                      conv_width=4),
+        source="arXiv:2405.21060",
+    ),
 }
 
-_LM_ZOO = ("starcoder2_15b", "mixtral_8x22b", "deepseek_67b", "mamba2_370m",
-           "musicgen_large", "llama32_vision_11b", "deepseek_v2_236b",
-           "nemotron4_15b", "recurrentgemma_2b")
+_LM_ZOO = ("starcoder2_15b", "mixtral_8x22b", "deepseek_67b", "musicgen_large",
+           "llama32_vision_11b", "deepseek_v2_236b", "nemotron4_15b",
+           "recurrentgemma_2b")
 
 
 def get_config(arch: str) -> ModelConfig:

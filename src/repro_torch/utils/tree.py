@@ -65,6 +65,15 @@ def tree_axpy(alpha, x, y):
     return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
 
 
+def tree_norm(a) -> torch.Tensor:
+    """Global L2 norm over the whole tree, in f32 (summed in leaf order)."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(a)]
+    total = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    for s in sq:
+        total = total + s
+    return torch.sqrt(total)
+
+
 def tree_stack(trees: List[Any]) -> Any:
     """List of same-structured trees → one tree with a leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

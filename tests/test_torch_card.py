@@ -13,7 +13,14 @@ same values: float32 outputs at 5e-5 (another summation order over up to L
 keys); bfloat16 outputs row by row, ||got - want|| / ||want|| over the head
 dim, as ``chip_smoke.py`` holds them (a single rounding of the output to
 bf16 stays under 2^-8; the flash kernel also rounds P to bf16 for its
-tensor-core product).
+tensor-core product).  The SSD chunk kernel's four outputs are each held
+relative to their own scale, max |got - want| / max |want| <= 5e-4: the
+kernel sums cum = cumsum(dt * a) serially and torch.cumsum does not, and
+exp(cum_i - cum_j) turns the rounding of cum (up to ~4e3 in magnitude at
+mamba2's a = -16) into relative error.  Fused Adam: bf16 p within one bf16
+ulp, f32 p within 1e-6 relative, m and v within 1e-6 relative.  Every
+kernel check is also shown a planted fault (the plain version with it),
+which it must reject.
 """
 import numpy as np
 import pytest
@@ -21,6 +28,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_adam as adam
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import stale_aggregate as agg
 
 F32_TOL = 5e-5
@@ -170,3 +179,183 @@ def test_decode_kernel_matches_plain(dtype, b, hq, hkv, s, d, window):
                                      q_pos, window=window)
     assert got.dtype == dtype
     _assert_attn_close("decode", got, want)
+
+
+# ------------------------------------------------------------- SSD chunk --
+
+SSD_RTOL = 5e-4
+
+SSD_CASES = [
+    # (B, NC, Q, H, P, N, model-like decay a = -linspace(1, 16))
+    (1, 2, 16, 1, 4, 4, False),
+    (2, 3, 64, 4, 16, 8, False),
+    (1, 2, 100, 3, 8, 16, True),
+    (1, 1, 200, 9, 64, 128, True),
+    (1, 4, 256, 8, 32, 32, False),
+    (2, 2, 256, 32, 64, 128, True),
+]
+
+
+def _ssd_case(b, nc, q, h, p, n, model_decay, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = randn(b, nc, q, h, p)
+    dt = torch.nn.functional.softplus(randn(b, nc, q, h))
+    a = (-torch.linspace(1.0, 16.0, h, device="cuda") if model_decay
+         else -torch.exp(randn(h) * 0.5))
+    return x, dt, a, randn(b, nc, q, n), randn(b, nc, q, n)
+
+
+def ssd_unmasked(x, dt, a, b, c):
+    """The plain version with the j <= i mask dropped (a planted fault)."""
+    da = (dt * a).movedim(-1, -2)
+    cum = torch.cumsum(da, dim=-1)
+    lmat = torch.exp(cum[..., :, None] - cum[..., None, :])
+    scores = torch.einsum("bzin,bzjn->bzij", c, b)
+    return torch.einsum("bzhij,bzjhp->bzihp", scores[:, :, None] * lmat,
+                        x * dt[..., None])
+
+
+def _scaled_err(got, want):
+    """max |got - want| / max |want|; NaN or inf if either is not finite."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+@pytest.mark.parametrize("b,nc,q,h,p,n,model_decay", SSD_CASES)
+def test_ssd_kernel_matches_plain(b, nc, q, h, p, n, model_decay):
+    _need_card()
+    args = _ssd_case(b, nc, q, h, p, n, model_decay, seed=q + h)
+    before = ssd.LAUNCHES
+    got = ssd.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == before + 1
+    want = ssd.ssd_chunk_plain(*args)
+    for name, g, w in zip(("y", "states", "chunk_decay", "in_decay"), got,
+                          want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert _scaled_err(g, w) <= SSD_RTOL, (name, _scaled_err(g, w))
+    fault = _scaled_err(ssd_unmasked(*args), want[0])
+    assert not fault <= SSD_RTOL, fault      # NaN (overflow) also rejects
+
+
+def test_ssd_chunked_on_card_matches_plain_model_scan():
+    _need_card()
+    from repro_torch.models.ssm import ssd_chunked as plain_chunked
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bs, sl, h, p, n = 2, 333, 8, 16, 32
+    x = torch.randn((bs, sl, h, p), generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((bs, sl, h), generator=g, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bm, cm = (torch.randn((bs, sl, n), generator=g, device="cuda")
+              for _ in range(2))
+    y, s = ssd.ssd_chunked(x, dt, a, bm, cm, 64)
+    want_y, want_s = plain_chunked(x, dt, a, bm, cm, 64)
+    assert _scaled_err(y, want_y) <= SSD_RTOL
+    assert _scaled_err(s, want_s) <= SSD_RTOL
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    args = list(_ssd_case(1, 1, 32, 2, 8, 8, False, seed=0))
+    with pytest.raises(TypeError):
+        ssd.ssd_chunk(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_chunk(args[0].transpose(3, 4).contiguous().transpose(3, 4),
+                      *args[1:])
+    big = _ssd_case(1, 1, 32, 2, 8, 256, False, seed=0)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd.ssd_chunk(*big)
+    x = args[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="attn_impl='xla'"):
+        ssd.ssd_chunk(x, *args[1:])[0].sum().backward()
+
+
+# ------------------------------------------------------------- fused Adam --
+
+ADAM_CASES = [
+    # (N, p dtype, g dtype, offset: 1 = views off the 4-element alignment)
+    (1, torch.float32, torch.float32, 0),
+    (3, torch.float32, torch.bfloat16, 0),
+    (4097, torch.bfloat16, torch.bfloat16, 0),
+    (4097, torch.float32, torch.bfloat16, 1),
+    (1_000_003, torch.bfloat16, torch.float32, 0),
+    (1_000_003, torch.float32, torch.float32, 1),
+]
+
+
+def _adam_inputs(n, p_dtype, g_dtype, offset, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(scale=1.0):
+        return torch.randn(n + offset, generator=g, device="cuda")[offset:] \
+            * scale
+
+    p = randn().to(p_dtype)
+    m = randn(0.1)
+    v = randn(0.01).abs()
+    grad = randn(1e-3).to(g_dtype)
+    return p, m, v, grad
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element of ``x`` (f32)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def adam_close(got, want):
+    """(p, m, v) of the kernel vs the plain version: bf16 p within one bf16
+    ulp, f32 p within 1e-6 relative, m and v within 1e-6 relative."""
+    gp, gm, gv = got
+    wp, wm, wv = want
+    if gp.dtype == torch.bfloat16:
+        ok_p = bool(((gp.float() - wp.float()).abs()
+                     <= bf16_ulp(wp.float())).all())
+    else:
+        ok_p = bool(((gp - wp).abs() <= 1e-6 * wp.abs() + 1e-30).all())
+    ok_mv = all(bool(((g - w).abs() <= 1e-6 * w.abs() + 1e-30).all())
+                for g, w in ((gm, wm), (gv, wv)))
+    return ok_p and ok_mv
+
+
+@pytest.mark.parametrize("n,p_dtype,g_dtype,offset", ADAM_CASES)
+@pytest.mark.parametrize("t", [1, 10])
+def test_fused_adam_kernel_matches_plain(n, p_dtype, g_dtype, offset, t):
+    _need_card()
+    p, m, v, grad = _adam_inputs(n, p_dtype, g_dtype, offset, seed=n + t)
+    lr = torch.tensor(3e-3, device="cuda")
+    tt = torch.tensor(t, dtype=torch.int32, device="cuda")
+    before = adam.LAUNCHES
+    got = adam.fused_adam_flat(p, m, v, grad, lr=lr, t=tt)
+    torch.cuda.synchronize()
+    assert adam.LAUNCHES == before + 1
+    assert got[0].dtype == p_dtype
+    scal = adam.adam_scalars(lr, tt, 0.9, 0.95, "cuda")
+    want = adam.fused_adam_plain(p, m, v, grad, scal, b1=0.9, b2=0.95,
+                                 eps=1e-8)
+    assert adam_close(got, want)
+    # planted fault: bias corrections dropped
+    no_bc = torch.stack([scal[0], torch.ones_like(scal[1]),
+                         torch.ones_like(scal[2])])
+    fault = adam.fused_adam_plain(p, m, v, grad, no_bc, b1=0.9, b2=0.95,
+                                  eps=1e-8)
+    assert not adam_close(fault, want)
+
+
+def test_fused_adam_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    p, m, v, grad = _adam_inputs(64, torch.float32, torch.float32, 0, 0)
+    with pytest.raises(TypeError):
+        adam.fused_adam_flat(p.half(), m, v, grad, lr=1e-3, t=1)
+    with pytest.raises(TypeError):
+        adam.fused_adam_flat(p, m.double(), v, grad, lr=1e-3, t=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam.fused_adam_flat(p[::2], m[::2], v[::2], grad[::2], lr=1e-3,
+                             t=1)
+    with pytest.raises(ValueError):
+        adam.fused_adam_flat(p, m.cpu(), v, grad, lr=1e-3, t=1)
