@@ -10,12 +10,16 @@ and each prints its seconds:
 1. environment: card name and power limit, torch and CUDA versions; TF32
    off for matmuls and convolutions;
 2. build: ``nvcc`` compiles every kernel from
-   ``src/repro_torch/kernels/csrc/``, one process per source, all at once;
+   ``src/repro_torch/kernels/csrc/``, one process per source, all at once,
+   and prints each kernel's registers, stack and spills (``-Xptxas -v``);
 3. kernel vs plain: each kernel against its plain torch version on the
    card at the main paths' shapes, timed with CUDA events beside the
    library yardstick and the byte/operation bound (Eq. 8 in f32; flash
-   and decode attention in bf16, the working type, and in f32; the SSD
-   chunk in f32 at the mamba2 scoring and prefill shapes; fused Adam on
+   and decode attention in bf16, the working type, and in f32, each with
+   its route, shared memory a CTA, S chunks for decode, and the first
+   design's time, a constant from PERF.md, printed beside the new one but
+   kept out of the kernels line; the SSD chunk in f32 at the mamba2
+   scoring and prefill shapes; fused Adam on
    mamba2's in_proj leaf with bf16 p, on an f32 leaf and a ragged N; a
    working set smaller than L2 is timed with L2 flushed before each call).
    Each bf16 attention check, the SSD check (twice: the j <= i mask
@@ -184,9 +188,38 @@ def phase_build(kernels):
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(logs)} -> sm_90a in {dt:.2f} s (parallel)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for kernel, info in ptxas_kernels(log).items():
+            print(f"[build] {name} {kernel}: {info}")
+
+
+def ptxas_kernels(log):
+    """``-Xptxas -v``'s report per kernel entry: its name -> its registers,
+    static shared memory, stack and spills."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = ""
+        elif name is not None and ("registers" in line or "spill" in line):
+            out[name] = (out[name] + "; " if out[name] else "") + \
+                line.split(":", 1)[-1].strip()
+    return dict(zip(demangle(list(out)), out.values()))
+
+
+def demangle(names):
+    """Kernel names through the toolkit's ``cu++filt`` (no parameter
+    types); the mangled names where it is not found."""
+    from repro_torch.kernels._build import nvcc
+    filt = os.path.join(os.path.dirname(nvcc()), "cu++filt")
+    if not names or not os.path.exists(filt):
+        return names
+    res = subprocess.run([filt, "-p", *names], capture_output=True,
+                         text=True)
+    lines = res.stdout.splitlines()
+    return lines if res.returncode == 0 and len(lines) == len(names) \
+        else names
 
 
 def _agg_inputs(torch, c, n, seed):
@@ -557,12 +590,18 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
     ops = 4 * b * hq * d * _flash_pairs(sl, causal, window)
     bound, by = _bound(nbytes, ops, H100_BF16_FLOPS if elem == 2
                        else H100_F32_FLOPS)
+    first = FIRST_DESIGN_MS[("flash", str(dtype)[6:],
+                             (b, hq, hkv, sl, d, causal, window))]
     row = dict(max_abs_err=err, max_row_rel_err=rel, ms=t_kernel,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
-               bound_by=by)
+               bound_by=by, kernel_route=fa.route(dtype, d),
+               smem_bytes=fa.smem_bytes(dtype, d))
     print(f"[attn] flash {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} L={sl} "
-          f"D={d} causal={causal} window={window}: err={err:.3e} row "
-          f"rel={rel:.3e}  kernel={t_kernel:.3f} ms  plain={t_plain:.3f} ms  "
+          f"D={d} causal={causal} window={window}, route "
+          f"{row['kernel_route']} ({row['smem_bytes']} B shared memory a "
+          f"CTA): err={err:.3e} row rel={rel:.3e}  kernel={t_kernel:.3f} ms "
+          f"(first design, PERF.md: {first:.3f} ms)  "
+          f"plain={t_plain:.3f} ms  "
           f"sdpa={t_lib:.3f} ms  bound={bound:.3f} ms ({by}; "
           f"{ops / t_kernel / 1e9:.1f} TFLOP/s)")
     return row
@@ -624,19 +663,34 @@ def _decode_case(torch, da, F, dtype, b, hq, hkv, s, d):
     t_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
     bound, by = _decode_bound(q, k, pos, q_pos)
+    chunk, chunks = da.plan(b, hkv, hq // hkv, s, torch.cuda.
+                            get_device_properties(0).multi_processor_count)
+    smem = da.smem_bytes(dtype, d, chunk)
+    first = FIRST_DESIGN_MS[("decode", str(dtype)[6:])]
     print(f"[attn] decode {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} S={s} "
-          f"D={d} (half-full wrapped ring): err={err:.3e} row rel="
-          f"{rel:.3e}  kernel={t_kernel * 1e3:.2f} us  plain="
-          f"{t_plain * 1e3:.2f} us  sdpa={t_lib * 1e3:.2f} us  bound="
-          f"{bound * 1e3:.2f} us ({by})")
+          f"D={d} (half-full wrapped ring), {chunks} S chunks "
+          f"({smem} B shared memory a CTA): err={err:.3e} "
+          f"row rel={rel:.3e}  kernel={t_kernel * 1e3:.2f} us (first "
+          f"design, PERF.md: {first * 1e3:.2f} us)  "
+          f"plain={t_plain * 1e3:.2f} us  "
+          f"sdpa={t_lib * 1e3:.2f} us  bound={bound * 1e3:.2f} us ({by})")
     return dict(max_abs_err=err, max_row_rel_err=rel, ms=t_kernel,
                 plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
-                bound_by=by)
+                bound_by=by, s_chunks=chunks, smem_bytes=smem)
 
 
 FLASH_SCORE_SHAPE = (2, 32, 4, 4096, 128, True, 0)
 FLASH_WINDOW_SHAPE = (2, 32, 4, 2047, 128, True, 512)
 DECODE_SHAPE = (4, 32, 4, 4096, 128)
+# the first designs' times at these shapes, printed for comparison only
+# (constants, not measured here; PERF.md §6, the kernel table: the first
+# design's chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700.00 W)
+FIRST_DESIGN_MS = {
+    ("flash", "bfloat16", FLASH_SCORE_SHAPE): 4.277,
+    ("flash", "bfloat16", FLASH_WINDOW_SHAPE): 0.535,
+    ("flash", "float32", FLASH_SCORE_SHAPE): 23.415,
+    ("flash", "float32", FLASH_WINDOW_SHAPE): 2.911,
+    ("decode", "bfloat16"): 0.12835, ("decode", "float32"): 0.15835}
 
 
 def phase_attention_vs_plain(torch, fa, da):
@@ -706,8 +760,12 @@ def phase_serve(torch, fa, da, mods, argv, device="cuda"):
         t_model = device_ms(torch, model_attn, reps=5, trials=20)
         bound, _ = _decode_bound(q[:, 0], ck.transpose(1, 2), cpos, q_pos)
     n_valid = int((cpos >= 0).sum()) // b
+    hkv, hq = ck.shape[2], q.shape[2]
+    _, chunks = da.plan(b, hkv, hq // hkv, ck.shape[1], torch.cuda.
+                        get_device_properties(0).multi_processor_count)
     print(f"[serve] decode kernel vs the model's sdpa on layer 0 of the "
-          f"live cache ({n_valid} of {cpos.shape[1]} slots filled, bf16): "
+          f"live cache ({n_valid} of {cpos.shape[1]} slots filled, bf16; "
+          f"{chunks} S chunks): "
           f"err={err:.3e} row rel={rel:.3e}; kernel {t_kernel * 1e3:.2f} us, "
           f"model sdpa {t_model * 1e3:.2f} us, bound {bound * 1e3:.2f} us")
     decode_profile(torch, mods, res)

@@ -16,26 +16,73 @@
 // ridge (~295 flop/byte in bf16), so the least time is the flops over the
 // 989 TFLOP/s bf16 tensor-core peak, 0.28 ms.
 //
-// Design (a simple, right first version; wgmma, TMA and warp
-// specialisation are later work):
-// * One CTA per (q tile of 64 rows, query head, batch).  A loop inside the
-//   CTA walks the K/V tiles of 64 rows, staged through shared memory, in
-//   place of the TPU grid's sequential k axis.  Tiles that the causal mask
-//   or the window empties for every row of the q tile are skipped.
-// * bf16: 4 warps, 16 q rows each.  Q's fragments stay in registers;
-//   S = Q K^T and O += P V run on the tensor cores with mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate), V's fragments come through
-//   ldmatrix.trans.  P is rounded to bf16 for the second product, as
-//   flash attention does on GPUs; the softmax statistics stay in f32.
-// * f32: 8 warps, 4 threads per q row, FMAs on the CUDA cores, so the f32
-//   path matches a float32 reference to float32 rounding.
-// * Inputs are read through (batch, head, row) strides with the head dim
-//   contiguous, so the model's [B, L, H, D] layout needs no transposed
-//   copy, and L is masked in the kernel (rows >= L are zero-filled in
-//   shared memory, never stored), so no padding copy is made.
-// * The C entry point checks its arguments and returns cudaGetLastError().
+// Three routes, a fixed function of (dtype, D) that the caller names
+// (flash_attention.py `route`) and this file checks:
+//
+// * bf16, D in {64, 128}: flash_wgmma_kernel, built the Hopper way.
+//   - A CTA owns 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each, plus a producer warpgroup whose one
+//     thread issues every copy (384 threads, one CTA an SM; setmaxnreg
+//     moves registers from the producer to the consumers).  It walks the
+//     K/V tiles that some row of its q tile can see; tiles every row masks
+//     are neither loaded nor computed.  A tile is 64 keys at D = 128 (S 32,
+//     O 64 and P 16 registers a thread fit without spilling; 128-key tiles
+//     spilled and made ptxas serialise the wgmmas) and 128 keys at D = 64.
+//   - K/V tiles arrive by TMA (cp.async.bulk.tensor) into a ring of stages
+//     (4 at D = 128: 32 KB of Q + 4 x 32 KB; 3 at D = 64), with a full
+//     mbarrier per stage for K and one for V and an empty mbarrier the 8
+//     consumer warps release.  Q arrives by TMA once.  The tensor maps are
+//     4-D over (D, L, H, B) with the caller's strides, so the model's
+//     [B, L, H, D] layout is read in place; SWIZZLE_128B, so a 128-column
+//     row arrives as two 64-column boxes.  Rows past L arrive zero-filled.
+//     A map cannot step a stride of 0, so a broadcast (expanded) dim of
+//     size > 1 is refused on this route.
+//     The maps are encoded on the host each call with
+//     cuTensorMapEncodeTiled, reached through
+//     cudaGetDriverEntryPoint(ByVersion): no -lcuda.
+//   - S = Q K^T is wgmma m64nBKk16 with Q and K both K-major in shared
+//     memory; O += P V is wgmma m64nDk16 with P rounded to bf16 in
+//     registers (the S accumulator's layout is the A fragment's) and V read
+//     in its natural [key, d] layout as the MN-major (transposed) B operand:
+//     no V transpose.  Accumulators, running max and sum are f32 registers.
+//   - Softmax in base 2: the row maximum is taken on the raw scores, then
+//     p = 2^(s * scale * log2(e) - max) is one FMA and one ex2.approx an
+//     element, with the -1e30 and 1e-30 conventions unchanged; maxima and
+//     sums run as four independent chains a row, and O's rescale is skipped
+//     by a warp whose maxima all held.  The mask is evaluated only on tiles
+//     that cross the diagonal, the window's edge or L; interior tiles skip
+//     it.
+//   - Per tile a warpgroup runs S, its softmax, then P V, each product
+//     completing before its registers are touched again; the other
+//     warpgroup's products run under this one's softmax.  (Passing the
+//     tensor cores between the warpgroups with named barriers, and issuing
+//     P V of one tile with S of the next, measured slower on an H100.)
+//   - With a causal mask the q tiles launch heaviest first (grid z runs
+//     over q tiles in reverse, heads and batch in x and y), so the tail is
+//     short.
+// * bf16, D in {16, 32}: flash_bf16_kernel, the first design (mma.sync
+//   m16n8k16, 64-row tiles, synchronous loads), which the wgmma tiling
+//   does not replace at these widths.
+// * f32, any D: flash_f32_kernel, FMAs on the CUDA cores, so the f32 path
+//   matches a float32 reference to float32 rounding (23.4 ms at the
+//   scoring shape, against 26.5 ms for SDPA in f32).
+//
+// What the first bf16 design lost (4.28 ms at the scoring shape, against
+// 0.455 ms for F.scaled_dot_product_attention on an H100, PERF.md): every
+// K/V tile was copied global -> shared by all threads between two
+// __syncthreads, so the tensor cores idled through every load; 205
+// registers a thread left two 128-thread CTAs an SM, too few warps to hide
+// those loads; mma.sync has no path to wgmma's rate, and K's fragments
+// came through 32-bit shared loads; the mask was evaluated twice on every
+// element of every tile; expf where exp2f would do; and the causal grid
+// launched the lightest q tiles first, so the heaviest made the tail.
+//
+// Every route reads q, k, v and o through (batch, head, row) strides with
+// the head dim contiguous, so no transposed or padded copy is made.  The C
+// entry point checks its arguments and returns a cudaError_t.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -227,7 +274,7 @@ flash_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through mma.sync m16n8k16
+// bfloat16, D in {16, 32}: tensor cores through mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int kBf16Threads = 128;  // 4 warps x 16 q rows
@@ -407,6 +454,673 @@ flash_bf16_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16, D in {64, 128}: wgmma + TMA, one producer warp, two consumer
+// warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBlockQ = 128;       // q rows a CTA: two warpgroups of 64
+constexpr int kQBoxBytes = kWgBlockQ * 128;  // a 64-column box of Q
+constexpr int kWgConsumers = 256;    // two consumer warpgroups
+constexpr int kWgThreads = kWgConsumers + 128;  // + the producer warpgroup
+// registers a thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kBoxCols = 64;         // SWIZZLE_128B: 128 bytes of bf16 a row
+constexpr int kAtomBytes = 1024;     // 8 rows of 128 bytes: one swizzle atom
+
+template <int D>
+struct WgLayout {
+  // keys a K/V tile: 64 at D = 128, where S, O and P must share the
+  // registers (S 32 + O 64 + P 16 a thread), 128 at D = 64
+  static constexpr int kBK = D == 128 ? 64 : 128;
+  static constexpr int kStages = D == 128 ? 4 : 3;
+  static constexpr int kBoxBytes = kBK * 128;     // a 64-column box of K/V
+  static constexpr int kBoxes = D / kBoxCols;    // boxes a tile
+  static constexpr int kQBytes = kWgBlockQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  // full K, full V, empty per stage, and Q's barrier; 1 KB of slack to
+  // align the base to a swizzle atom
+  static constexpr int kSmemBytes =
+      kAtomBytes + kBarOffset + 8 * (3 * kStages + 1);
+};
+
+struct WgParams {
+  void* o;
+  Strides so;
+  int L, group, causal, window;
+  float scale_log2;      // scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed; a pipeline that
+// never completes it traps (a launch failure the caller sees) instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box at (column, row, head, batch) into shared memory at dst
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a SWIZZLE_128B operand: start address,
+// leading and stride byte offsets (in 16-byte units), layout type 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+
+// keeps the compiler from moving accesses of registers that an in-flight
+// wgmma reads or writes across its issue or its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]),
+                 "+r"(r[i][3])::"memory");
+}
+
+// d (64 x 128, f32) {+}= A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) {+}= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// the first step of S: d (64 x 128, f32) = A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128_zero(float (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// the first step of S: d (64 x 64, f32) = A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64_zero(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// O += P V for one 16-key slice, at the head dim's width
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_v) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, a, desc_v);
+  else
+    wgmma_rs_n64(o, a, desc_v);
+}
+
+// O += P V for a whole tile: V [key, d] at v_st as the MN-major B operand;
+// 16 keys are two swizzle atoms (2 KB), the 64-column boxes one box apart
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_st) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk],
+                sw128_desc(v_st + kk * 16 * 128, BK * 128, kAtomBytes));
+}
+
+// S = Q K^T for one tile: D/16 steps of 16 columns, 4 steps per 64-column
+// box, 32 bytes apart inside the swizzle atom; Q and K both K-major
+template <int D, int BK>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_wg,
+                                        uint32_t k_st) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t in_atom = (kk & 3) * 32;
+    const uint64_t dq = sw128_desc(q_wg + (kk >> 2) * kQBoxBytes + in_atom,
+                                   16, kAtomBytes);
+    const uint64_t dk = sw128_desc(k_st + (kk >> 2) * BK * 128 + in_atom, 16,
+                                   kAtomBytes);
+    // the first step writes s without reading it, so the softmax's writes
+    // to s do not count as inputs of this product
+    if constexpr (BK == 128) {
+      if (kk == 0)
+        wgmma_ss_n128_zero(s, dq, dk);
+      else
+        wgmma_ss_n128(s, dq, dk, 1);
+    } else {
+      if (kk == 0)
+        wgmma_ss_n64_zero(s, dq, dk);
+      else
+        wgmma_ss_n64(s, dq, dk, 1);
+    }
+  }
+}
+
+__device__ __forceinline__ bool wg_allowed(const WgParams& p, int q, int k) {
+  bool ok = k < p.L;
+  if (p.causal) ok = ok && (k <= q);
+  if (p.window > 0) ok = ok && (q - k < p.window);
+  return ok;
+}
+
+// 2^x on the SFU (ex2.approx, ~2 ulp; 2^-1e30 flushes to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online softmax in base 2 for a thread's two rows qr[0..1]:
+// element i of s is row qr[(i >> 1) & 1], key k0 + 8 (i >> 2) + cq + (i & 1).
+// The mask is evaluated only where `edge` says the tile crosses it.  The
+// row maximum is taken on the raw scores (the scale is positive), so each
+// element costs one max, one FMA, one exp2 and one add; maxima and sums
+// run as 4 independent chains a row.  P comes out in bf16 as the A operand
+// of P V (keys 16kk .. 16kk + 15 are the accumulator's blocks 2kk and
+// 2kk + 1); O is left to the caller to rescale by alpha.
+template <int BK>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4], float (&m)[2],
+    float (&l)[2], float (&alpha)[2], const WgParams& p, bool edge, int k0,
+    const int (&qr)[2], int cq) {
+  // element i = 4j + 2r + e: chain (j & 1) * 2 + e of row r
+  float mc[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mc[r][c] = kNegInf;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    if (edge && !wg_allowed(p, qr[r], k0 + (i >> 2) * 8 + cq + (i & 1)))
+      s[i] = kNegInf;
+    const int c = ((i >> 2) & 1) * 2 + (i & 1);
+    mc[r][c] = fmaxf(mc[r][c], s[i]);
+  }
+  float neg_mx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float raw = quad_max(fmaxf(fmaxf(mc[r][0], mc[r][1]),
+                                     fmaxf(mc[r][2], mc[r][3])));
+    const float mx =
+        fmaxf(m[r], raw == kNegInf ? kNegInf : raw * p.scale_log2);
+    alpha[r] = fast_exp2(m[r] - mx);
+    m[r] = mx;
+    neg_mx[r] = -mx;
+  }
+  float rc[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    // a masked element is 0, also where the whole row is masked so far
+    const float pi = (edge && s[i] == kNegInf)
+                         ? 0.f
+                         : fast_exp2(fmaf(s[i], p.scale_log2, neg_mx[r]));
+    s[i] = pi;
+    rc[r][((i >> 2) & 1) * 2 + (i & 1)] += pi;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = alpha[r] * l[r] +
+           quad_sum((rc[r][0] + rc[r][1]) + (rc[r][2] + rc[r][3]));
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// O *= alpha a row; skipped by a warp whose rows' maxima all held (the
+// common case once a row has seen its largest scores)
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&alpha)[2]) {
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, WgParams p) {
+  using Lay = WgLayout<D>;
+  constexpr int kStages = Lay::kStages;
+  constexpr int BK = Lay::kBK;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + kAtomBytes - 1) &
+                        ~static_cast<uint32_t>(kAtomBytes - 1);
+  const uint32_t q_s = base;                       // [box][128 rows][64]
+  const uint32_t k_s = base + Lay::kQBytes;        // stage st: + st * tile
+  const uint32_t v_s = k_s + kStages * Lay::kTileBytes;
+  const uint32_t bars = base + Lay::kBarOffset;
+  const uint32_t bar_q = bars + 8 * 3 * kStages;
+  // full K of stage st: bars + 8 st; full V: + 8 kStages; empty: + 16 kStages
+  auto full_k = [&](int st) { return bars + 8 * st; };
+  auto full_v = [&](int st) { return bars + 8 * (kStages + st); };
+  auto empty = [&](int st) { return bars + 8 * (2 * kStages + st); };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // heaviest q tiles first under a causal mask
+  const int qt = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * kWgBlockQ;
+  const int hk = h / p.group;
+
+  // K tiles [kt0, kt1) that hold a key some row of the q tile may see
+  const int q_last = min(q0 + kWgBlockQ, p.L) - 1;
+  const int k_hi = p.causal ? q_last : p.L - 1;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int kt0 = k_lo / BK;
+  const int kt1 = k_hi / BK + 1;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), kWgConsumers / 32);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp_group = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (warp_group == kWgConsumers / 128) {
+    // producer warpgroup: gives its registers up; one thread issues every
+    // copy, K/V kStages - 1 tiles ahead of the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kWgConsumers) {
+      mbar_expect_tx(bar_q, Lay::kQBytes);
+#pragma unroll
+      for (int x = 0; x < Lay::kBoxes; ++x)
+        tma_load_4d(q_s + x * kQBoxBytes, &tm_q, bar_q, x * kBoxCols, q0, h,
+                    b);
+      for (int kt = kt0, it = 0; kt < kt1; ++kt, ++it) {
+        const int st = it % kStages;
+        mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);   // stage free
+        mbar_expect_tx(full_k(st), Lay::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < Lay::kBoxes; ++x)
+          tma_load_4d(k_s + st * Lay::kTileBytes + x * Lay::kBoxBytes, &tm_k,
+                      full_k(st), x * kBoxCols, kt * BK, hk, b);
+        mbar_expect_tx(full_v(st), Lay::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < Lay::kBoxes; ++x)
+          tma_load_4d(v_s + st * Lay::kTileBytes + x * Lay::kBoxBytes, &tm_v,
+                      full_v(st), x * kBoxCols, kt * BK, hk, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // consumer warpgroup wg owns q rows qa .. qa + 63; a thread holds rows
+    // qr[0] and qr[1] of the accumulators, columns 8n + cq + {0, 1}
+    const WgParams prm = p;           // not the kernel parameter's address
+    const int wg = warp_group;
+    const int lane = tid & 31;
+    const int qa = q0 + wg * 64;
+    const int row = ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int qr[2] = {qa + row, qa + row + 8};
+    const int cq = (lane & 3) * 2;
+    const uint32_t q_wg = q_s + wg * 64 * 128;
+    const int n_tiles = kt1 - kt0;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    float s[BK / 2];
+    float alpha[2];
+    uint32_t pa[BK / 16][4];          // P, bf16
+    // the mask cuts tile k0 for some row of this warpgroup: the diagonal,
+    // the window's edge or L (every wgmma below runs unconditionally: a
+    // wgmma on a divergent path is serialised)
+    auto edge = [&](int k0) {
+      return k0 + BK > prm.L || (prm.causal && k0 + BK - 1 > qa) ||
+             (prm.window > 0 && qa + 63 - k0 >= prm.window);
+    };
+
+    // Per tile: S, the softmax, P V.  Each product completes before the
+    // registers it uses are touched again (a register written while a wgmma
+    // that reads it is in flight serialises the wgmmas); the other
+    // warpgroup's products run under this one's softmax.
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      const int k0 = (kt0 + it) * BK;
+      mbar_wait(full_k(st), parity);
+      wgmma_fence();
+      issue_s<D, BK>(s, q_wg, k_s + st * Lay::kTileBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      online_softmax<BK>(s, pa, m, l, alpha, prm, edge(k0), k0, qr, cq);
+      rescale<D>(o, alpha);
+      mbar_wait(full_v(st), parity);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<D, BK>(o, pa, v_s + st * Lay::kTileBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+      __syncwarp();                   // the stage is consumed
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.so.b +
+                        h * p.so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qr[r] >= p.L) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = ob + qr[r] * p.so.l;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + cq) =
+            pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, L, H, B) of a bf16 [B, H, L, D] view with element
+// strides s (head dim contiguous), boxes of 64 columns x box_rows rows.
+cudaError_t encode_bhld(CUtensorMap* map, const void* ptr, int D, int L,
+                        int H, int B, const Strides& s, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  // bytes.  A 0 stride is not encodable: on a size-1 dim (never stepped)
+  // any stride does; a broadcast dim of size > 1 is refused, since the
+  // map would step it
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.l) * 2,
+                           static_cast<cuuint64_t>(s.h) * 2,
+                           static_cast<cuuint64_t>(s.b) * 2};
+  for (int i = 0; i < 3; ++i) {
+    if (strides[i] != 0) continue;
+    if (dims[i + 1] != 1) return cudaErrorInvalidValue;
+    strides[i] = 16;
+  }
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const Params& p, int B, int Hq, int Hkv,
+                         cudaStream_t stream) {
+  constexpr int BK = WgLayout<D>::kBK;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_bhld(&tq, q, D, p.L, Hq, B, p.sq, kWgBlockQ);
+  if (err == cudaSuccess)
+    err = encode_bhld(&tk, k, D, p.L, Hkv, B, p.sk, BK);
+  if (err == cudaSuccess)
+    err = encode_bhld(&tv, v, D, p.L, Hkv, B, p.sv, BK);
+  if (err != cudaSuccess) return err;
+  WgParams wp;
+  wp.o = p.o;
+  wp.so = p.so;
+  wp.L = p.L;
+  wp.group = p.group;
+  wp.causal = p.causal;
+  wp.window = p.window;
+  wp.scale_log2 = p.scale * 1.4426950408889634f;
+  const int smem = WgLayout<D>::kSmemBytes;
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, B, (p.L + kWgBlockQ - 1) / kWgBlockQ);
+  flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, wp);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int smem, dim3 grid, int threads,
                    const Params& p, cudaStream_t stream) {
@@ -419,22 +1133,27 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, int threads,
 }
 
 template <int D>
-cudaError_t dispatch(int is_bf16, dim3 grid, const Params& p,
-                     cudaStream_t stream) {
-  if (is_bf16)
-    return launch(flash_bf16_kernel<D>, bf16_smem_bytes<D>(), grid,
-                  kBf16Threads, p, stream);
+cudaError_t dispatch_f32(dim3 grid, const Params& p, cudaStream_t stream) {
   return launch(flash_f32_kernel<D>, f32_smem_bytes<D>(), grid, kF32Threads,
                 p, stream);
+}
+
+template <int D>
+cudaError_t dispatch_mma(dim3 grid, const Params& p, cudaStream_t stream) {
+  return launch(flash_bf16_kernel<D>, bf16_smem_bytes<D>(), grid,
+                kBf16Threads, p, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: device pointers; element strides (batch, head, row) of each,
-// the head dim D contiguous.  dtype: 0 float32, 1 bfloat16 (all four
-// tensors).  Returns a cudaError_t (0 on success).
+// the head dim D contiguous.  route: 0 float32 on the CUDA cores (any D),
+// 1 bfloat16 through mma.sync (D 16 or 32), 2 bfloat16 through wgmma and
+// TMA (D 64 or 128); any other pairing is refused, and so is a stride of 0
+// on a dim of size > 1 on route 2.  Returns a cudaError_t
+// (0 on success).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
+    const void* q, const void* k, const void* v, void* o, int route, int B,
     int Hq, int Hkv, int L, int D, long long q_sb, long long q_sh,
     long long q_sl, long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl, long long o_sb,
@@ -455,13 +1174,36 @@ extern "C" int flash_attention_fwd(
   p.scale = scale;
   const dim3 grid((L + kBlockQ - 1) / kBlockQ, Hq, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 16: err = dispatch<16>(is_bf16, grid, p, s); break;
-    case 32: err = dispatch<32>(is_bf16, grid, p, s); break;
-    case 64: err = dispatch<64>(is_bf16, grid, p, s); break;
-    case 128: err = dispatch<128>(is_bf16, grid, p, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (route == 0) {
+    switch (D) {
+      case 16: err = dispatch_f32<16>(grid, p, s); break;
+      case 32: err = dispatch_f32<32>(grid, p, s); break;
+      case 64: err = dispatch_f32<64>(grid, p, s); break;
+      case 128: err = dispatch_f32<128>(grid, p, s); break;
+      default: break;
+    }
+  } else if (route == 1 && (D == 16 || D == 32)) {
+    err = D == 16 ? dispatch_mma<16>(grid, p, s) : dispatch_mma<32>(grid, p, s);
+  } else if (route == 2 && (D == 64 || D == 128)) {
+    err = D == 64 ? launch_wgmma<64>(q, k, v, p, B, Hq, Hkv, s)
+                  : launch_wgmma<128>(q, k, v, p, B, Hq, Hkv, s);
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory a CTA of the route's kernel takes at head dim D, in
+// bytes (0 for a pairing the entry point refuses).
+extern "C" int flash_attention_smem_bytes(int route, int D) {
+  switch (route * 1000 + D) {
+    case 16: return f32_smem_bytes<16>();
+    case 32: return f32_smem_bytes<32>();
+    case 64: return f32_smem_bytes<64>();
+    case 128: return f32_smem_bytes<128>();
+    case 1016: return bf16_smem_bytes<16>();
+    case 1032: return bf16_smem_bytes<32>();
+    case 2064: return WgLayout<64>::kSmemBytes;
+    case 2128: return WgLayout<128>::kSmemBytes;
+    default: return 0;
+  }
 }

@@ -1,11 +1,16 @@
 """Blockwise flash attention (forward) behind one API.
 
 ``flash_attention_bhld`` is the port of the TPU kernel
-``src/repro/kernels/flash_attention.py::flash_attention_bhld``: a CUDA C++
-kernel for Hopper (``csrc/flash_attention.cu``; bf16 on the tensor cores
-through ``mma.sync``, float32 on the CUDA cores), built at first use by
+``src/repro/kernels/flash_attention.py::flash_attention_bhld``: CUDA C++
+kernels for Hopper (``csrc/flash_attention.cu``), built at first use by
 ``kernels/_build.py`` and bound through ``ctypes``.  It is bound by
-operations; the source's header note gives the design.
+operations; the source's header note gives the design.  ``route`` names
+the kernel a CUDA tensor launches, a fixed function of (dtype, D):
+
+* bf16, D 64 or 128 — ``wgmma`` on both products, K/V tiles through a TMA
+  ring with mbarriers, a producer warpgroup and two consumer warpgroups;
+* bf16, D 16 or 32 — ``mma.sync`` m16n8k16, synchronous tile loads;
+* float32, any D — FMAs on the CUDA cores.
 
 * ``attention_plain``     — the plain torch version, the counterpart of
   the reference's ``kernels/ref.py::attention_ref``: materialised scores,
@@ -32,19 +37,23 @@ from repro_torch.kernels._build import CSRC, build_library
 
 SOURCE = CSRC / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
+ROUTES = {"f32-fma": 0, "mma-sync": 1, "wgmma-tma": 2}   # the C entry's codes
 NO_BACKWARD = ("flash attention has no backward pass (neither has the "
                "reference kernel); it comes with the transformer's training "
                "slice, ROADMAP queue 2, item 3")
 
 LAUNCHES = 0          # kernel launches (not plain-version calls)
 _FN = None            # the loaded C entry point
+_LIB = None
 
 
 def build() -> str:
     """Compile the kernel (if this source has not been built yet) and load
     it.  Returns the compiler's log, empty when it was built before."""
-    global _FN
+    global _FN, _LIB
     lib, log = build_library(SOURCE)
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    _LIB = lib
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
@@ -53,6 +62,21 @@ def build() -> str:
     fn.restype = ctypes.c_int
     _FN = fn
     return log
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA tensor of this dtype and head dim launches."""
+    if dtype == torch.float32:
+        return "f32-fma"
+    return "wgmma-tma" if d in (64, 128) else "mma-sync"
+
+
+def smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory a CTA of the route's kernel takes (builds the
+    kernels if they are not loaded yet)."""
+    if _LIB is None:
+        build()
+    return _LIB.flash_attention_smem_bytes(ROUTES[route(dtype, d)], d)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -115,11 +139,17 @@ def _launch(q, k, v, out, *, causal, window, scale) -> None:
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} is not aligned for "
                              f"16-byte loads")
+        if route(q.dtype, d) == "wgmma-tma" and any(
+                s == 0 and n > 1 for s, n in zip(t.stride()[:3], t.shape)):
+            raise ValueError(f"flash_attention: {name} is broadcast (stride "
+                             f"0 on a dim of size > 1), which a TMA tensor "
+                             f"map cannot step; pass k/v with Hkv heads "
+                             f"or a contiguous copy")
     if _FN is None:
         build()
     with torch.cuda.device(q.device):
         err = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  int(q.dtype == torch.bfloat16), b, hq, k.shape[1], sl, d,
+                  ROUTES[route(q.dtype, d)], b, hq, k.shape[1], sl, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], int(causal), int(window), float(scale),
                   torch.cuda.current_stream().cuda_stream)

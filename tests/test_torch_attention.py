@@ -6,8 +6,12 @@ against the reference's Pallas kernels in interpret mode and its ``ref.py``
 oracles, on the cases of ``tests/test_kernels.py`` and
 ``tests/test_decode_attention_kernel.py``, with inputs made by numpy from a
 seed.  Tolerances are the reference tests' own: 2e-5 in float32 (another
-summation order), 3e-2 in bfloat16 (the output is rounded to bf16).
+summation order), 3e-2 in bfloat16 (the output is rounded to bf16).  The
+decode kernels' split-S plan (per-chunk softmax statistics combined in
+chunk order) is emulated in plain torch and held at 1e-5 in float32.
 """
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -159,3 +163,105 @@ def test_decode_takes_the_model_cache_layout_without_a_copy():
                                    torch.from_numpy(q_pos))
     want = ref.decode_attention_ref(*map(jnp.asarray, (q, k, v, pos, q_pos)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+# ------------------------------------------------- the card kernels' plans --
+
+def test_flash_route_is_a_function_of_dtype_and_head_dim():
+    """bf16 at D 64 and 128 takes the wgmma + TMA kernel, bf16 at D 16 and
+    32 the mma.sync kernel, float32 the CUDA-core kernel."""
+    assert [fa.route(torch.bfloat16, d) for d in fa.HEAD_DIMS] == [
+        "mma-sync", "mma-sync", "wgmma-tma", "wgmma-tma"]
+    assert {fa.route(torch.float32, d) for d in fa.HEAD_DIMS} == {"f32-fma"}
+    assert set(fa.ROUTES) == {"f32-fma", "mma-sync", "wgmma-tma"}
+
+
+def test_decode_split_fills_the_card_at_the_yi6b_shape():
+    """B 4, Hkv 4, group 8, S 4,096: at least 132 CTAs, and at least 132
+    whose chunk holds a valid slot of the half-full ring; where B·Hkv
+    alone fills the card, one chunk."""
+    b, hkv, group, s = 4, 4, 8, 4096
+    chunk, n_split = da.plan(b, hkv, group, s)
+    assert chunk % da.KEY_BLOCK == 0 and n_split == -(-s // chunk)
+    assert b * hkv * n_split >= 132
+    assert b * hkv * (-(-(s // 2) // chunk)) >= 132
+    assert da.plan(34, 4, 8, 300) == (300, 1)
+    assert da.plan(34, 4, 8, 100_000)[0] == da.MAX_CHUNK
+
+
+def _split_decode(q, k, v, pos, q_pos, *, window, chunk):
+    """The decode kernels' algorithm in plain torch: per S chunk of
+    ``chunk`` slots its (m, l, acc) in base 2 (m = -1e30, l = 0, acc = 0
+    for a chunk with no valid slot), then the chunks combined in order."""
+    b, hq, d = q.shape
+    group = hq // k.shape[1]
+    s_len = k.shape[2]
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    kk = k.repeat_interleave(group, 1)
+    vv = v.repeat_interleave(group, 1)
+    valid = (pos >= 0) & (pos <= q_pos[:, None])
+    if window > 0:
+        valid &= (q_pos[:, None] - pos) < window
+    parts = []
+    for c0 in range(0, s_len, chunk):
+        sl = slice(c0, min(c0 + chunk, s_len))
+        sc = torch.einsum("bhd,bhsd->bhs", q, kk[:, :, sl]) * scale_log2
+        ok = valid[:, None, sl].expand_as(sc)
+        m = torch.where(ok, sc, torch.full_like(sc, -1e30)).amax(-1)
+        p = torch.where(ok, torch.exp2(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bhs,bhsd->bhd", p, vv[:, :, sl])))
+    big = torch.stack([m for m, _, _ in parts])
+    ls = torch.stack([l for _, l, _ in parts])
+    mx = torch.where(ls > 0, big, torch.full_like(big, -1e30)).amax(0)
+    out = torch.zeros_like(q)
+    lsum = torch.zeros_like(ls[0])
+    for m, l, acc in parts:                      # in chunk order
+        f = torch.where(l > 0, torch.exp2(m - mx), torch.zeros_like(m))
+        lsum = lsum + l * f
+        out = out + acc * f[..., None]
+    return out / lsum.clamp_min(1e-30)[..., None]
+
+
+def _split_rings(kind, rng, b, s):
+    slot = np.arange(s)
+    if kind == "empty_chunks":
+        # row 0 keeps its first 100 slots, row 1 none, row 2 the second
+        # half, positions out of order
+        pos = np.stack([np.where(slot < 100, slot, -1), np.full(s, -1),
+                        np.where(slot >= s // 2, rng.permutation(s), -1)])
+        return pos, np.array([99, 5, s - 1])
+    # a half-full ring that has wrapped, q_pos a little behind the newest
+    pos = np.where(slot < s // 2, slot + s, -1)[None].repeat(b, 0)
+    return pos, s + s // 2 - 1 - 7 * np.arange(b)
+
+
+@pytest.mark.parametrize("kind,window", [("empty_chunks", 0),
+                                         ("empty_chunks", 300),
+                                         ("half_ring", 0),
+                                         ("half_ring", 100)])
+def test_decode_split_combine_matches_plain_and_reference(kind, window):
+    b, hq, hkv, s, d = 3, 8, 2, 1024, 32
+    chunk, n_split = da.plan(b, hkv, hq // hkv, s)
+    assert n_split > 1
+    q, k, v = _normal(s + window, (b, hq, d), (b, hkv, s, d), (b, hkv, s, d))
+    pos, q_pos = _split_rings(kind, np.random.default_rng(1), b, s)
+    pos, q_pos = pos.astype(np.int32), q_pos.astype(np.int32)
+    tq, tk, tv, tpos, tqp = map(torch.from_numpy, (q, k, v, pos, q_pos))
+    got = _split_decode(tq, tk, tv, tpos, tqp, window=window, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
+    want = ref_decode(*map(jnp.asarray, (q, k, v, pos, q_pos)),
+                      window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    # the plain version averages v over a row with no valid slot; the
+    # kernels (and the reference kernel) give 0 there
+    keep = (pos >= 0) & (pos <= q_pos[:, None])
+    if window:
+        keep &= (q_pos[:, None] - pos) < window
+    rows = keep.any(-1)
+    plain = da.decode_attention_plain(tq, tk, tv, tpos, tqp, window=window)
+    np.testing.assert_allclose(got.numpy()[rows], plain.numpy()[rows],
+                               rtol=1e-5, atol=1e-5)
+    assert bool((got[torch.from_numpy(~rows)] == 0).all())

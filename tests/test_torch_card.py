@@ -13,8 +13,12 @@ same values: float32 outputs at 5e-5 (another summation order over up to L
 keys); bfloat16 outputs row by row, ||got - want|| / ||want|| over the head
 dim, as ``chip_smoke.py`` holds them (a single rounding of the output to
 bf16 stays under 2^-8; the flash kernel also rounds P to bf16 for its
-tensor-core product).  The SSD chunk kernel's four outputs are each held
-relative to their own scale, max |got - want| / max |want| <= 5e-4: the
+tensor-core product).  The flash cases cover both bf16 routes (wgmma + TMA
+at D 64 and 128, mma.sync at D 16 and 32) and the wgmma tiling's edges;
+the decode cases the split-S plan's edges (empty chunks, ragged S, one
+chunk, two head chunks a kv head, a row with no valid slot).  The SSD
+chunk kernel's four outputs are each held relative to their own scale,
+max |got - want| / max |want| <= 5e-4: the
 kernel sums cum = cumsum(dt * a) serially and torch.cumsum does not, and
 exp(cum_i - cum_j) turns the rounding of cum (up to ~4e3 in magnitude at
 mamba2's a = -16) into relative error.  Fused Adam: bf16 p within one bf16
@@ -99,7 +103,22 @@ FLASH_CASES = [
     (1, 2, 2, 50, 16, False, 0),
     (2, 8, 2, 333, 128, True, 0),
     (1, 4, 4, 1000, 128, True, 200),
+    # the wgmma route's edges: L not a multiple of its 128-row tiles, a
+    # window edge inside a tile, MQA and GQA group 8, non-causal
+    (1, 2, 2, 129, 128, True, 0),
+    (1, 2, 1, 4095, 128, True, 0),
+    (1, 4, 2, 2047, 128, True, 512),
+    (1, 8, 1, 300, 64, True, 0),
+    (1, 8, 1, 300, 128, True, 0),
+    (1, 16, 2, 257, 64, True, 0),
+    (1, 16, 2, 257, 128, True, 0),
+    (2, 4, 2, 200, 128, False, 0),
+    # D 16 and 32 stay on the mma.sync route
+    (1, 4, 2, 130, 16, True, 0),
+    (1, 8, 2, 150, 32, True, 40),
 ]
+
+ROUTE = {16: "mma-sync", 32: "mma-sync", 64: "wgmma-tma", 128: "wgmma-tma"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -108,6 +127,8 @@ FLASH_CASES = [
 def test_flash_kernel_matches_plain(dtype, b, hq, hkv, sl, d, causal,
                                     window):
     _need_card()
+    assert fa.route(dtype, d) == (ROUTE[d] if dtype == torch.bfloat16
+                                  else "f32-fma")
     q, k, v = _randn(sl + d, dtype, (b, hq, sl, d), (b, hkv, sl, d),
                      (b, hkv, sl, d))
     before = fa.LAUNCHES
@@ -124,6 +145,50 @@ def test_flash_kernel_matches_plain(dtype, b, hq, hkv, sl, d, causal,
     assert got.dtype == dtype
     _assert_attn_close("flash", got, want)
     _assert_attn_close("flash", got_m.transpose(1, 2), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_kernel_broadcast_kv(dtype, d):
+    """k/v expanded from one head of one batch row (stride 0 over B and
+    H): the f32 and mma.sync routes read it in place; the wgmma route's
+    tensor maps cannot step a stride of 0, so the wrapper and the C entry
+    refuse it.  A stride of 0 on a size-1 dim is fine on every route."""
+    _need_card()
+    b, hq, hkv, sl = 2, 4, 2, 200
+    q, kb, vb = _randn(d, dtype, (b, hq, sl, d), (1, 1, sl, d),
+                       (1, 1, sl, d))
+    k, v = kb.expand(b, hkv, sl, d), vb.expand(b, hkv, sl, d)
+    want = fa.attention_plain(q.float(), k.float(), v.float(), causal=True)
+    before = fa.LAUNCHES
+    if fa.route(dtype, d) == "wgmma-tma":
+        with pytest.raises(ValueError, match="broadcast"):
+            fa.flash_attention_bhld(q, k, v, causal=True)
+        assert fa.LAUNCHES == before
+        out = torch.empty_like(q)
+        if fa._FN is None:
+            fa.build()
+        err = fa._FN(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), fa.ROUTES["wgmma-tma"], b, hq, hkv, sl,
+                     d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *out.stride()[:3], 1, 0, 1.0 / d ** 0.5,
+                     torch.cuda.current_stream().cuda_stream)
+        assert err == 1                         # cudaErrorInvalidValue
+    else:
+        got = fa.flash_attention_bhld(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before + 1
+        _assert_attn_close("flash", got, want)
+    # batch 1 with k/v expanded over it: stride 0 on a dim of size 1
+    before = fa.LAUNCHES
+    k1, v1 = (t[0].contiguous().as_strided((1, hkv, sl, d),
+                                           (0, sl * d, d, 1))
+              for t in (k, v))
+    got = fa.flash_attention_bhld(q[:1], k1, v1, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    _assert_attn_close("flash", got, want[:1])
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
@@ -159,6 +224,9 @@ DECODE_CASES = [
     (3, 2, 2, 64, 16, 0),
     (4, 32, 4, 4096, 128, 0),
     (2, 32, 2, 777, 128, 100),
+    (4, 32, 4, 1000, 128, 0),       # S not a multiple of the chunk (32)
+    (34, 8, 4, 300, 64, 0),         # B·Hkv >= 132: one chunk, no combine
+    (2, 32, 2, 512, 128, 0),        # group 16: two head chunks a kv head
 ]
 
 
@@ -179,6 +247,36 @@ def test_decode_kernel_matches_plain(dtype, b, hq, hkv, s, d, window):
                                      q_pos, window=window)
     assert got.dtype == dtype
     _assert_attn_close("decode", got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_kernel_empty_chunks_and_rows(dtype, window):
+    """Row 0 keeps its first 100 slots only, so most S chunks are empty;
+    row 1 keeps none and must read 0 (the plain softmax would average v
+    there); row 2 keeps the second half, positions out of order."""
+    _need_card()
+    b, hq, hkv, s, d = 3, 16, 2, 1024, 128
+    assert da.plan(b, hkv, hq // hkv, s)[1] > 1
+    q, kc, vc = _randn(s + window, dtype, (b, hq, d), (b, s, hkv, d),
+                       (b, s, hkv, d))
+    slot = np.arange(s)
+    rng = np.random.default_rng(3)
+    pos = np.stack([np.where(slot < 100, slot, -1), np.full(s, -1),
+                    np.where(slot >= s // 2, rng.permutation(s), -1)])
+    pos = torch.from_numpy(pos.astype(np.int32)).cuda()
+    q_pos = torch.tensor([99, 5, s - 1], dtype=torch.int32, device="cuda")
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    before = da.LAUNCHES
+    got = da.decode_attention_bhsd(q, k, v, pos, q_pos, window=window)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 1
+    want = da.decode_attention_plain(q.float(), k.float(), v.float(), pos,
+                                     q_pos, window=window)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got[1] == 0).all())
+    _assert_attn_close("decode", got[0::2], want[0::2])
 
 
 # ------------------------------------------------------------- SSD chunk --
