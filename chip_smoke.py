@@ -11,15 +11,19 @@ and each prints its seconds:
    off for matmuls and convolutions;
 2. build: ``nvcc`` compiles every kernel from
    ``src/repro_torch/kernels/csrc/``, one process per source, all at once,
-   and prints each kernel's registers, stack and spills (``-Xptxas -v``);
+   and prints each kernel's registers, static shared memory, stack and
+   spills (``-Xptxas -v``);
 3. kernel vs plain: each kernel against its plain torch version on the
    card at the main paths' shapes, timed with CUDA events beside the
-   library yardstick and the byte/operation bound (Eq. 8 in f32; flash
+   library yardstick and the byte/operation bound (Eq. 8 in f32, with its
+   grid, and at C 128 and N 1,000,003 also with L2 flushed, beside
+   ``addmv`` flushed alike; flash
    and decode attention in bf16, the working type, and in f32, each with
    its route, shared memory a CTA, S chunks for decode, and the first
    design's time, a constant from PERF.md, printed beside the new one but
    kept out of the kernels line; the SSD chunk in f32 at the mamba2
-   scoring and prefill shapes; fused Adam on
+   scoring and prefill shapes, its rate over the j <= i pairs and over all
+   pairs, and its shared memory a CTA; fused Adam on
    mamba2's in_proj leaf with bf16 p, on an f32 leaf and a ragged N; a
    working set smaller than L2 is timed with L2 flushed before each call).
    Each bf16 attention check, the SSD check (twice: the j <= i mask
@@ -81,6 +85,7 @@ SRC = os.path.join(ROOT, "src")
 # H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit
 H100_BYTES_PER_S = 3.35e12          # HBM3
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12            # tf32 tensor cores
 H100_BF16_FLOPS = 989e12            # bf16 tensor cores
 
 # tests/test_driver.py::test_static_trajectory_matches_pre_refactor_golden
@@ -180,16 +185,19 @@ def phase_environment(torch):
 
 def phase_build(kernels):
     """One ``nvcc`` per source, all started together (the builds are
-    subprocesses, so threads overlap them)."""
+    subprocesses, so threads overlap them).  Returns each source's
+    ``ptxas_kernels`` report."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
         futs = {m.SOURCE.name: ex.submit(m.build) for m in kernels}
         logs = {name: f.result() for name, f in futs.items()}
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(logs)} -> sm_90a in {dt:.2f} s (parallel)")
-    for name, log in logs.items():
-        for kernel, info in ptxas_kernels(log).items():
+    reports = {name: ptxas_kernels(log) for name, log in logs.items()}
+    for name, report in reports.items():
+        for kernel, info in report.items():
             print(f"[build] {name} {kernel}: {info}")
+    return reports
 
 
 def ptxas_kernels(log):
@@ -233,9 +241,11 @@ def _agg_inputs(torch, c, n, seed):
     return p, buf, mask
 
 
-def phase_kernel_vs_plain(torch, agg, shapes):
+def phase_kernel_vs_plain(torch, agg, shapes, flushed=()):
     """Every shape: kernel vs plain (max abs error), then device times of
-    kernel, plain version and the one-call library yardstick."""
+    kernel, plain version and the one-call library yardstick, back to back;
+    the shapes in ``flushed`` also with L2 flushed before each call, kernel
+    and yardstick alike (at N 79,510 even C 128's 41 MB sits in L2)."""
     rows = {}
     for n, c in shapes:
         p, buf, mask = _agg_inputs(torch, c, n, seed=n + c)
@@ -256,17 +266,28 @@ def phase_kernel_vs_plain(torch, agg, shapes):
                                                      alpha=-0.07 / a))
         nbytes = (c + 2) * n * 4 + c * 4
         flops = 2 * c * n + n
-        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        b_ops = flops / H100_F32_FLOPS * 1e3
-        bound = max(b_bytes, b_ops)
+        bound, by = _bound(nbytes, flops, H100_F32_FLOPS)
+        ctas, threads, per = agg.launch_shape(
+            n, agg.vector_width(n, p, buf))
         rows[(n, c)] = dict(max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
-                            library_ms=t_lib, bound_ms=bound,
-                            bound_by="bytes" if b_bytes >= b_ops
-                            else "operations")
+                            library_ms=t_lib, bound_ms=bound, bound_by=by,
+                            grid=[ctas, threads, per])
         print(f"[kernel] stale_aggregate N={n} C={c}: err={err:.3e} "
               f"(tol {tol:.1e})  kernel={t_kernel * 1e3:.2f} us  "
               f"plain={t_plain * 1e3:.2f} us  addmv={t_lib * 1e3:.2f} us  "
-              f"bound={bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB)")
+              f"bound={bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB; grid "
+              f"{ctas} CTAs x {threads} threads x {per} groups a thread)")
+        if (n, c) in flushed:
+            t_kf = device_ms(torch, lambda: agg.stale_aggregate_flat(
+                p, buf, mask, beta=0.07), reps=5, trials=20, flush_l2=True)
+            t_lf = device_ms(torch, lambda: torch.addmv(
+                p, bt, mask, alpha=-0.07 / a), reps=5, trials=20,
+                flush_l2=True)
+            rows[(n, c)].update(ms_l2_flushed=t_kf,
+                                library_ms_l2_flushed=t_lf)
+            print(f"[kernel] stale_aggregate N={n} C={c}, L2 flushed before "
+                  f"each call: kernel={t_kf * 1e3:.2f} us  addmv="
+                  f"{t_lf * 1e3:.2f} us  bound={bound * 1e3:.2f} us")
     return rows
 
 
@@ -1032,19 +1053,37 @@ def _ssd_inputs(torch, shape, seed):
 
 def ssd_work(shape):
     """(bytes, operations over the (i, j <= i) pairs, operations over all
-    (i, j) pairs as the TPU kernel computes them) for one ``ssd_chunk``."""
+    (i, j) pairs as the TPU kernel computes them, and of the first the
+    products' share) for one ``ssd_chunk``."""
     b, nc, q, h, p, n = shape
     bz = b * nc
     nbytes = 4 * (2 * bz * q * h * p + bz * q * h + h + 2 * bz * q * n
                   + bz * h * p * n + bz * h + bz * h * q)
     states = 2 * h * p * n * q
 
-    def per_chunk(pairs):
-        # scores c_i.b_j, the weight S * exp * dt per head, y over P
-        return 2 * n * pairs + 3 * h * pairs + 2 * h * p * pairs + states
+    def products(pairs):
+        # scores c_i.b_j, y over P, the state
+        return 2 * n * pairs + 2 * h * p * pairs + states
 
-    return (nbytes, bz * per_chunk(q * (q + 1) // 2),
-            bz * per_chunk(q * q))
+    def per_chunk(pairs):
+        # the products and the weight S * exp * dt per head
+        return products(pairs) + 3 * h * pairs
+
+    pairs = q * (q + 1) // 2
+    return (nbytes, bz * per_chunk(pairs), bz * per_chunk(q * q),
+            bz * products(pairs))
+
+
+def ssd_bound(nbytes, ops, mma_ops):
+    """The SSD chunk's least time (ms) and what bounds it.  The products
+    run in 3xTF32, three TF32 products on the tensor cores for each f32
+    one, the weights on the CUDA cores in f32; the two units run side by
+    side, so the slower of them bounds the operations."""
+    b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    b_ops = max(3 * mma_ops / H100_TF32_FLOPS,
+                (ops - mma_ops) / H100_F32_FLOPS) * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
 
 
 def phase_ssd_vs_plain(torch, ssd):
@@ -1072,17 +1111,23 @@ def phase_ssd_vs_plain(torch, ssd):
                              trials=10)
         t_plain = device_ms(torch, lambda: ssd.ssd_chunk_plain(*args),
                             reps=1, trials=3)
-        nbytes, ops, ops_all = ssd_work(shape)
-        bound, by = _bound(nbytes, ops, H100_F32_FLOPS)
+        nbytes, ops, ops_all, mma_ops = ssd_work(shape)
+        bound, by = ssd_bound(nbytes, ops, mma_ops)
+        _, _, q, _, p, n = shape
+        smem = ssd.smem_bytes(q, p, n)
         rows[shape] = dict(max_abs_err=err, max_scaled_err=rel, ms=t_kernel,
                            plain_ms=t_plain, library_ms=None, bound_ms=bound,
-                           bound_by=by)
+                           bound_by=by, smem_bytes=smem)
         print(f"[ssd] chunk B,NC,Q,H,P,N={shape} f32: y err={err:.3e}, "
               f"scaled (all outputs) {rel:.3e}  kernel={t_kernel:.3f} ms  "
               f"plain={t_plain:.3f} ms  library: none  bound={bound:.3f} ms "
               f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP over "
-              f"j <= i, {ops_all / 1e9:.2f} over all pairs; "
-              f"{ops / t_kernel / 1e9:.1f} TFLOP/s)")
+              f"j <= i, {mma_ops / 1e9:.2f} of them products, each three "
+              f"TF32 products in 3xTF32; {ops_all / 1e9:.2f} over all "
+              f"pairs; {ops / t_kernel / 1e9:.1f} TFLOP/s over j <= i, "
+              f"{ops_all / t_kernel / 1e9:.1f} over all pairs, "
+              f"{3 * mma_ops / t_kernel / 1e9:.1f} of TF32 issued; {smem} B "
+              f"shared memory a CTA)")
         del args
         torch.cuda.empty_cache()
     return rows
@@ -1695,14 +1740,17 @@ def main():
 
     t_start = time.perf_counter()
     timed("environment", phase_environment, torch)
-    timed("build", phase_build, [agg, fa, da, ssd, adam])
+    ptxas = timed("build", phase_build, [agg, fa, da, ssd, adam])
     mods = import_port()
     # the main path's shapes: mnist_dnn's N with the server's close (C = A
     # = 5), the engine's padded bucket (8) and the scale point (128); one
-    # large ragged N
+    # large ragged N; mamba2-370m's --fused-agg round (N of the whole
+    # model, C = 4)
     rows = timed("kernel vs plain (Eq. 8)", phase_kernel_vs_plain, torch,
                  agg, [(79_510, 1), (79_510, 5), (79_510, 8),
-                       (79_510, 128), (1_000_003, 16)])
+                       (79_510, 128), (1_000_003, 16), (419_825_152, 4)],
+                 flushed=[(79_510, 128), (1_000_003, 16)])
+    torch.cuda.empty_cache()
     attn = timed("kernel vs plain (attention)", phase_attention_vs_plain,
                  torch, fa, da)
     ssd_rows = timed("kernel vs plain (SSD chunk)", phase_ssd_vs_plain,
@@ -1742,7 +1790,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/stale_aggregate.cu",
          "replaces": "src/repro/kernels/stale_aggregate.py:50",
          "launches": launches, "shape": list(shape), "dtype": "float32",
-         **row},
+         "ptxas": ptxas["stale_aggregate.cu"], **row},
         {"name": "fused_adam_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
          "replaces": "src/repro/kernels/fused_adam.py:36",
@@ -1773,8 +1821,9 @@ def main():
          "path": "mamba2-370m scoring forward, one launch per layer",
          "shape": list(SSD_SCORE_SHAPE), "dtype": "float32",
          "library": "none: no single PyTorch call computes it",
-         "bound_ops": "j <= i pairs only",
-         **ssd_rows[SSD_SCORE_SHAPE]},
+         "bound_ops": "j <= i pairs only; each product three TF32 "
+                      "products (3xTF32)",
+         "ptxas": ptxas["ssd_scan.cu"], **ssd_rows[SSD_SCORE_SHAPE]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 ``ssd_chunk`` is the port of the TPU kernel
 ``src/repro/kernels/ssd_scan.py::ssd_chunk_pallas``: a CUDA C++ kernel for
-Hopper (``csrc/ssd_scan.cu``; f32 on the CUDA cores), built at first use by
+Hopper (``csrc/ssd_scan.cu``; f32 in and out, its three products on the
+tensor cores in 3xTF32: each operand split into TF32 hi + lo, three
+``mma.sync`` products, about f32 accuracy), built at first use by
 ``kernels/_build.py`` and bound through ``ctypes``.  It is bound by
 operations; the source's header note gives the design.
 
@@ -36,19 +38,31 @@ NO_BACKWARD = ("the SSD chunk kernel has no backward pass (neither has the "
 
 LAUNCHES = 0          # kernel launches (not plain-version calls)
 _FN = None            # the loaded C entry point
+_LIB = None
 
 
 def build() -> str:
     """Compile the kernel (if this source has not been built yet) and load
     it.  Returns the compiler's log, empty when it was built before."""
-    global _FN
+    global _FN, _LIB
     lib, log = build_library(SOURCE)
+    lib.ssd_chunk_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_chunk_smem_bytes.restype = ctypes.c_int64
+    _LIB = lib
     fn = lib.ssd_chunk_f32
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _FN = fn
     return log
+
+
+def smem_bytes(q: int, p: int, n: int) -> int:
+    """Dynamic shared memory a CTA of the kernel takes at (Q, P, N) (builds
+    the kernel first)."""
+    if _LIB is None:
+        build()
+    return _LIB.ssd_chunk_smem_bytes(q, p, n)
 
 
 def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -8,10 +8,12 @@ kernel for Hopper (``csrc/stale_aggregate.cu``), built with ``nvcc`` for
 ``sm_90a`` at first use into ``build/`` at the repository root (keyed by a
 hash of the source, by ``kernels/_build.py``) and bound through
 ``ctypes``.  It is bound by bytes:
-``(C+2)·N·4`` over the card's 3.35 TB/s; the source's header note gives the
-design.  For a tensor on the CPU the wrapper runs ``stale_aggregate_plain``,
-the same c-ordered f32 loop in plain torch; for a CUDA tensor it launches
-the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+``(C+2)·N·4`` over the card's 3.35 TB/s.  Its grid is sized from the
+card's SM count into equal slices (``launch_shape``), and each thread keeps
+the loads of 8–16 buffer rows in flight before it adds them in c order;
+the source's header note gives the design.  For a tensor on the CPU the
+wrapper runs ``stale_aggregate_plain``, the same c-ordered f32 loop in
+plain torch; for a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
 
 On top sit the tree entry points the protocol code shares:
 
@@ -34,14 +36,19 @@ SOURCE = CSRC / "stale_aggregate.cu"
 
 LAUNCHES = 0          # kernel launches (not plain-version calls)
 _FN = None            # the loaded C entry point
+_LIB = None
 
 
 def build() -> str:
     """Compile the kernel (if this source has not been built yet) and load
     it.  Returns the compiler's log (``-Xptxas -v``: registers, spills),
     empty when the library was already built."""
-    global _FN
+    global _FN, _LIB
     lib, log = build_library(SOURCE)
+    lib.stale_aggregate_plan.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.stale_aggregate_plan.restype = ctypes.c_int
+    _LIB = lib
     fn = lib.stale_aggregate_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -49,6 +56,20 @@ def build() -> str:
     fn.restype = ctypes.c_int
     _FN = fn
     return log
+
+
+def launch_shape(n: int, vec: int) -> tuple:
+    """(CTAs, threads a CTA, column groups a thread) of the kernel's grid for
+    N columns at vector width ``vec`` on the current card (builds the kernel
+    first)."""
+    if _LIB is None:
+        build()
+    out = (ctypes.c_int64 * 3)()
+    err = _LIB.stale_aggregate_plan(n, vec, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"stale_aggregate_plan failed with CUDA error "
+                           f"{err} (N={n}, vec={vec})")
+    return tuple(out)
 
 
 def _check(params: torch.Tensor, buffers: torch.Tensor,
@@ -83,7 +104,7 @@ def stale_aggregate_plain(params: torch.Tensor, buffers: torch.Tensor,
     return (params.to(torch.float32) - scale * acc).to(params.dtype)
 
 
-def _vector_width(n: int, *tensors: torch.Tensor) -> int:
+def vector_width(n: int, *tensors: torch.Tensor) -> int:
     """Widest of 4, 2, 1 floats that divides N (so each [C, N] row stays
     aligned) and that every base pointer is aligned to."""
     for v in (4, 2):
@@ -113,7 +134,7 @@ def stale_aggregate_flat(params: torch.Tensor, buffers: torch.Tensor,
     with torch.cuda.device(params.device):
         err = _FN(params.data_ptr(), buffers.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), n, c, float(beta),
-                  _vector_width(n, params, buffers, out),
+                  vector_width(n, params, buffers, out),
                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"stale_aggregate kernel launch failed with CUDA "

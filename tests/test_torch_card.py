@@ -19,9 +19,14 @@ the decode cases the split-S plan's edges (empty chunks, ragged S, one
 chunk, two head chunks a kv head, a row with no valid slot).  The SSD
 chunk kernel's four outputs are each held relative to their own scale,
 max |got - want| / max |want| <= 5e-4: the
-kernel sums cum = cumsum(dt * a) serially and torch.cumsum does not, and
-exp(cum_i - cum_j) turns the rounding of cum (up to ~4e3 in magnitude at
-mamba2's a = -16) into relative error.  Fused Adam: bf16 p within one bf16
+kernel sums cum = cumsum(dt * a) in its own order (a warp scan) and
+torch.cumsum in another, and exp(cum_i - cum_j) turns the rounding of cum
+(up to ~4e3 in magnitude at mamba2's a = -16) into relative error; its
+products run in 3xTF32 on the tensor cores (about 21 bits an operand).
+The SSD cases cover the m16n8k8 tiles' edges (ragged Q, P, N and heads,
+and P, N not multiples of 4, which take 4-byte copies), the Eq.-8 cases
+the grid's edges (N under a slice, a few groups past a full pass, C 0 and
+256, rows only 4-byte aligned).  Fused Adam: bf16 p within one bf16
 ulp, f32 p within 1e-6 relative, m and v within 1e-6 relative.  Every
 kernel check is also shown a planted fault (the plain version with it),
 which it must reject.
@@ -60,12 +65,19 @@ def _inputs(c, n, seed):
     p = rng.normal(size=n).astype(np.float32)
     buf = rng.normal(size=(c, n)).astype(np.float32)
     mask = rng.choice([0.0, 1.0, 0.5, 0.7 ** 3], size=c).astype(np.float32)
-    mask[0] = 1.0
+    mask[:1] = 1.0
     return (torch.from_numpy(x).cuda() for x in (p, buf, mask))
 
 
-@pytest.mark.parametrize("c,n", [(1, 79_510), (5, 79_510), (8, 79_510),
-                                 (128, 79_510), (16, 1_000_003), (3, 7)])
+@pytest.mark.parametrize("c,n", [
+    (1, 79_510), (5, 79_510), (8, 79_510), (128, 79_510), (16, 1_000_003),
+    (3, 7),
+    (2, 1),              # N under one CTA's slice
+    (256, 79_510),       # the engine's largest padded bucket
+    (0, 79_510),         # no rows: A clamps to 1, the output is p
+    (128, 1_001),        # N odd: rows only 4-byte aligned
+    (8, 135_171),        # a few groups past a full pass at V = 1 on 132 SMs
+])
 def test_stale_aggregate_kernel_matches_plain(c, n):
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs a card")
@@ -77,6 +89,26 @@ def test_stale_aggregate_kernel_matches_plain(c, n):
     want = agg.stale_aggregate_plain(p, buf, mask, beta=0.07)
     err = float((got - want).abs().max())
     assert err <= 1e-6 * (1 + float(p.abs().max()))
+
+
+@pytest.mark.parametrize("vec", [1, 2, 4])
+def test_stale_aggregate_kernel_grid_edges(vec):
+    """N at and a few columns past a whole number of the grid's slices on
+    this card: the launch shape covers N and fills the SMs evenly."""
+    _need_card()
+    slots = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (slots * 512 * vec, slots * 512 * vec + 3 * vec,
+              slots * 37 * vec + vec):
+        p, buf, mask = _inputs(5, n, seed=n)
+        v = agg.vector_width(n, p, buf)       # the width the wrapper takes
+        ctas, threads, per = agg.launch_shape(n, v)
+        groups = n // v
+        assert ctas <= slots and threads <= 512
+        assert ctas * threads * per >= groups > (ctas - 1) * threads * per
+        got = agg.stale_aggregate_flat(p, buf, mask, beta=0.07)
+        want = agg.stale_aggregate_plain(p, buf, mask, beta=0.07)
+        assert float((got - want).abs().max()) <= 1e-6 * (
+            1 + float(p.abs().max()))
 
 
 def test_stale_aggregate_kernel_rejects_bad_inputs_on_card():
@@ -291,6 +323,12 @@ SSD_CASES = [
     (1, 1, 200, 9, 64, 128, True),
     (1, 4, 256, 8, 32, 32, False),
     (2, 2, 256, 32, 64, 128, True),
+    # the m16n8k8 tiles' edges: P and N not multiples of 8, Q 17, one head
+    # past a group of 8, P and N not multiples of 4 (4-byte copies)
+    (1, 2, 64, 4, 12, 20, False),
+    (2, 1, 17, 3, 8, 8, True),
+    (1, 1, 128, 33, 16, 32, True),
+    (1, 2, 40, 3, 6, 10, False),
 ]
 
 

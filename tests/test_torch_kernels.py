@@ -35,8 +35,8 @@ def _t(x):
     return torch.from_numpy(x.copy())
 
 
-@pytest.mark.parametrize("c", [1, 2, 5, 128])
-@pytest.mark.parametrize("n", [79_510, 7])
+@pytest.mark.parametrize("c", [1, 2, 5, 128, 256])
+@pytest.mark.parametrize("n", [79_510, 7, 1_001, 1])
 def test_plain_matches_reference_flat(c, n):
     p, buf, mask = _inputs(c, n, seed=c * 1000 + n)
     got = agg.stale_aggregate_flat(_t(p), _t(buf), _t(mask), beta=0.07)
@@ -48,6 +48,29 @@ def test_plain_matches_reference_flat(c, n):
     want_pl = ref_agg.stale_aggregate_flat(jp, jb, jm, beta=0.07,
                                            interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_pl), **TOL)
+
+
+def test_no_rows_gives_params():
+    """C = 0: A clamps to 1 and the output is p (the Pallas reference
+    takes no C = 0; its jnp backend does)."""
+    p, _, _ = _inputs(1, 11, seed=4)
+    buf, mask = np.zeros((0, 11), np.float32), np.zeros(0, np.float32)
+    got = agg.stale_aggregate_flat(_t(p), _t(buf), _t(mask), beta=0.5)
+    np.testing.assert_array_equal(got.numpy(), p)
+    want = ref_agg.stale_aggregate_update(jnp.asarray(p), jnp.asarray(buf),
+                                          jnp.asarray(mask), beta=0.5,
+                                          backend="jnp")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,want", [(79_510, 2), (1_000_003, 1),
+                                    (1_000_000, 4), (6, 2), (1, 1)])
+def test_vector_width_is_the_widest_that_divides_n(n, want):
+    """The kernel's V: rows of a [C, N] buffer stay V-aligned only if V
+    divides N (mnist_dnn's N = 79,510 takes 2)."""
+    t = torch.zeros(n + 1)
+    assert agg.vector_width(n, t, t) == want
+    assert agg.vector_width(n, t, t[1:]) == 1     # a pointer 4 bytes off
 
 
 def test_all_zero_mask_clamps_a_to_one():
