@@ -35,6 +35,17 @@ and each prints its seconds:
 5. scale point: 256 UEs, A = 128 (the engine sweep's top point);
 6. card-side golden: the first static golden of ``tests/test_driver.py``
    from the JAX package's seed-0 init (``src/repro_torch/testdata``);
+6b. mobile edge (slice 6), every Eq.-8 launch counted and its (N, C)
+   noted: ``benchmarks/mobility.py``'s sweep (1,024 UEs, A 64, {0, 20} m/s
+   × {1 cell, 4 cells with the cell→cloud hierarchy}, 8 rounds, cold and
+   warm), ``benchmarks/scenarios.py``'s matrix (its five registry
+   scenarios × equal and Theorem-2 bandwidth, 64 UEs on the 3-cell
+   hierarchy, 12 rounds), the degenerate mobile run against the static
+   golden, a zero-rate scenario against the closed world, and one traced
+   run whose JSONL must validate; then Eq. 8 held against its plain
+   version on the path's own inputs at each (N, C) (a planted fault must
+   be rejected), and the 4-cell 20 m/s point run again on the CPU: host
+   numbers bitwise, params within float32 tolerance;
 7. serve: full-width yi-6b in bf16 through ``repro_torch.launch.serve``
    (batch 4, prompt 2,048, 32 tokens, cache 4,096; then the CLI's own
    defaults), then the decode kernel held against the model's own decode
@@ -301,26 +312,31 @@ def _quickstart(mods):
     return cfg, data
 
 
-def _record_shapes(agg):
-    """Wrap the flat entry point to note each (N, C) the path launches;
-    the launch count itself stays the wrapper's own."""
-    seen = collections.Counter()
+def _capture_eq8(agg):
+    """Wrap the flat entry point: count each (N, C) the path launches and
+    keep a copy of the first launch's inputs at each; the launch count
+    itself stays the wrapper's own."""
+    seen, first = collections.Counter(), {}
     orig = agg.stale_aggregate_flat
 
     def recording(params, buffers, mask, *, beta):
         if params.is_cuda:
-            seen[(int(buffers.shape[1]), int(buffers.shape[0]))] += 1
+            shape = (int(buffers.shape[1]), int(buffers.shape[0]))
+            seen[shape] += 1
+            if shape not in first:
+                first[shape] = (params.clone(), buffers.clone(),
+                                mask.clone(), float(beta))
         return orig(params, buffers, mask, beta=beta)
 
     agg.stale_aggregate_flat = recording
-    return seen, orig
+    return seen, first, orig
 
 
 def phase_main_path(torch, agg, mods, device="cuda"):
     cfg, data = _quickstart(mods)
     model = mods.build_model(cfg.model)
     engine = mods.SimulationEngine(model, cfg.fl, "perfed", device=device)
-    seen, orig = _record_shapes(agg)
+    seen, _, orig = _capture_eq8(agg)
     try:
         agg.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -443,35 +459,48 @@ def phase_scale(torch, agg, mods, device="cuda"):
     return out
 
 
-def phase_golden(torch, mods, device="cuda"):
+def _golden_run(mods, device, **cfg_extra):
+    """The first static golden's configuration, from the JAX package's
+    seed-0 init; ``cfg_extra`` adds e.g. a degenerate mobility config."""
     import numpy as np
     cfg = mods.ExperimentConfig(
         model=mods.get_config("mnist_dnn"),
         fl=mods.FLConfig(n_ues=8, participants_per_round=3, staleness_bound=3,
                          alpha=0.03, beta=0.07, inner_batch=8, outer_batch=8,
-                         hessian_batch=8))
+                         hessian_batch=8), **cfg_extra)
     model = mods.build_model(cfg.model)
     init = dict(np.load(os.path.join(SRC, "repro_torch", "testdata",
                                      "mnist_dnn_init_seed0.npz")))
     model.init = lambda gen: mods.from_numpy_tree(init, "cpu")
     clients = mods.partition_noniid(mods.synthetic_mnist(n=600, seed=21), 8,
                                     n_labels=4, seed=0)
-    res = mods.run_simulation(cfg, model, clients, algorithm="perfed",
-                              mode="semi", max_rounds=6, eval_every=2, seed=0,
-                              device=device)
+    return mods.run_simulation(cfg, model, clients, algorithm="perfed",
+                               mode="semi", max_rounds=6, eval_every=2,
+                               seed=0, device=device)
+
+
+def check_golden(res, what):
+    """Host numbers bitwise, losses within rtol 1e-4 of the golden."""
     check([float(t).hex() for t in res.times] == GOLDEN_TIMES,
-          f"golden times differ: {[float(t).hex() for t in res.times]}")
-    check(float(res.total_time).hex() == GOLDEN_TOTAL, "golden total_time")
-    check(float(res.wait_fraction).hex() == GOLDEN_WAIT, "golden wait")
-    check(res.pi.tolist() == GOLDEN_PI, "golden Π differs")
+          f"{what}: golden times differ: "
+          f"{[float(t).hex() for t in res.times]}")
+    check(float(res.total_time).hex() == GOLDEN_TOTAL,
+          f"{what}: golden total_time")
+    check(float(res.wait_fraction).hex() == GOLDEN_WAIT, f"{what}: golden wait")
+    check(res.pi.tolist() == GOLDEN_PI, f"{what}: golden Π differs")
     check(res.payload_dispatches == 8 and res.payloads_computed == 18,
-          f"golden dispatches {res.payload_dispatches}/"
+          f"{what}: golden dispatches {res.payload_dispatches}/"
           f"{res.payloads_computed}, want 8/18")
     rel = max(abs(a / b - 1) for a, b in zip(res.losses, GOLDEN_LOSSES))
     rel_g = max(abs(a / b - 1) for a, b in zip(res.global_losses,
                                                GOLDEN_GLOBAL))
     check(rel <= 1e-4 and rel_g <= 1e-4,
-          f"golden losses off by {rel:.2e} / {rel_g:.2e} (rtol 1e-4)")
+          f"{what}: golden losses off by {rel:.2e} / {rel_g:.2e} (rtol 1e-4)")
+    return rel, rel_g
+
+
+def phase_golden(torch, mods, device="cuda"):
+    rel, rel_g = check_golden(_golden_run(mods, device), "static")
     print(f"[golden] times/Π/wait/dispatches bitwise; losses rel err "
           f"{rel:.2e}, global {rel_g:.2e} (rtol 1e-4)")
 
@@ -1691,9 +1720,370 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
     return sum(per_round), per_round, seconds, peak, adam_err, eq8
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the mobile multi-cell and open-world path
+# ---------------------------------------------------------------------------
+
+# benchmarks/mobility.py's full sweep: mnist_dnn, 1,024 UEs, A 64, S 8,
+# first-order payloads, batches 4/4/4, equal bandwidth, step_s 1.0, a cloud
+# merge every 4 edge rounds, 8 rounds, no evals
+MOBILITY_N_UES = 1024
+MOBILITY_SPEEDS = (0.0, 20.0)
+MOBILITY_CELLS = (1, 4)
+MOBILITY_ROUNDS = 8
+# benchmarks/scenarios.py's matrix: 64 UEs, A 8, the 3-cell hierarchy at
+# 20 m/s, step_s 0.2, a cloud merge every 4 edge rounds, 12 rounds, under
+# equal and Theorem-2 bandwidth; its registry, copied as constants
+SCENARIO_N_UES = 64
+SCENARIO_ROUNDS = 12
+SCENARIO_POLICIES = ("equal", "theorem2")
+SCENARIOS = {
+    "static": dict(enabled=False),
+    "churn": dict(enabled=True, initial_active_frac=0.75, arrival_rate=1.0,
+                  departure_rate=0.05, min_active=8),
+    "diurnal": dict(enabled=True, initial_active_frac=0.75,
+                    arrival_rate=2.0, departure_rate=0.05, min_active=8,
+                    diurnal_amplitude=0.9, diurnal_period_s=4.0),
+    "flash_crowd": dict(enabled=True, initial_active_frac=0.6,
+                        arrival_rate=0.5, departure_rate=0.03, min_active=8,
+                        flash_time_s=0.5, flash_duration_s=2.0,
+                        flash_arrival_boost=6.0, flash_hotspot_cell=0,
+                        flash_hotspot_frac=0.5),
+    "drift": dict(enabled=True, initial_active_frac=0.9, arrival_rate=0.5,
+                  departure_rate=0.02, min_active=8, drift_rate=0.5,
+                  drift_frac=0.3),
+}
+# final params of a card run against the same run on the CPU (f32; TF32 is
+# off): payload matmuls sum in another order, Eq. 8 in the same
+MOBILE_PARAM_RTOL, MOBILE_PARAM_ATOL = 1e-5, 1e-6
+
+
+def _mobile_setup(mods, n, *, a, speed, n_cells, step_s, scenario=None,
+                  data_n=None):
+    """The benchmarks' mobile configuration: first-order PerFed, batches
+    4/4/4, S 8, random-waypoint UEs, a hierarchy over more than one cell."""
+    cfg = mods.ExperimentConfig(
+        model=mods.get_config("mnist_dnn"),
+        fl=mods.FLConfig(n_ues=n, participants_per_round=a,
+                         staleness_bound=8, alpha=0.03, beta=0.07,
+                         first_order=True, inner_batch=4, outer_batch=4,
+                         hessian_batch=4),
+        mobility=mods.MobilityConfig(
+            enabled=True, model="random_waypoint", speed_mps=speed,
+            n_cells=n_cells, hierarchy=n_cells > 1, cloud_sync_every=4,
+            step_s=step_s),
+        scenario=mods.ScenarioConfig(**(scenario or {})))
+    data = mods.synthetic_mnist(n=data_n or max(2500, 10 * n), seed=0)
+    return cfg, data
+
+
+def host_numbers(res):
+    """Every host-side number of a run, floats as hex (bitwise)."""
+    hexes = lambda xs: [float(x).hex() for x in xs]      # noqa: E731
+    return {"times": hexes(res.times), "rounds": res.rounds.tolist(),
+            "pi": res.pi.tolist(), "total_time": float(res.total_time).hex(),
+            "wait_fraction": float(res.wait_fraction).hex(),
+            "eta_realised": hexes(res.eta_realised),
+            **{k: int(getattr(res, k)) for k in (
+                "payload_dispatches", "payloads_computed", "n_cells",
+                "handovers", "cloud_rounds", "departed_arrivals", "ue_joins",
+                "ue_departures", "label_drifts", "aborted_rounds",
+                "pending_uploads")}}
+
+
+def host_mismatch(a, b):
+    return sorted(k for k in a if a[k] != b[k])
+
+
+def hold_eq8_on_path(torch, agg, first, tag):
+    """Eq. 8 against its plain version on the inputs the mobile path gave
+    it at each (N, C); the same check must reject the plain version with
+    the last lane's weight dropped (a planted fault).  Times each shape
+    beside the plain version, ``addmv`` and the byte bound."""
+    rows = {}
+    for (n, c), (p, buf, mask, beta) in sorted(first.items()):
+        got = agg.stale_aggregate_flat(p, buf, mask, beta=beta)
+        want = agg.stale_aggregate_plain(p, buf, mask, beta=beta)
+        tol = 1e-6 * (1.0 + float(p.abs().max()))
+        err = float((got - want).abs().max())
+        check(math.isfinite(err) and err <= tol,
+              f"mobile path Eq. 8 at N={n} C={c}: {err} > {tol}")
+        bad_mask = mask.clone()
+        bad_mask[-1] = 0.0 if float(mask[-1]) != 0.0 else 1.0
+        if c == 1:
+            bad_buf = buf * 1.5           # one lane: scale its payload
+            faulty = agg.stale_aggregate_plain(p, bad_buf, mask, beta=beta)
+        else:
+            faulty = agg.stale_aggregate_plain(p, buf, bad_mask, beta=beta)
+        fault = float((got - faulty).abs().max())
+        check(fault > tol, f"mobile path Eq. 8 at N={n} C={c}: the check "
+              f"accepts a planted fault ({fault} <= {tol})")
+        a = max(float(mask.sum()), 1.0)
+        bt = buf.t()
+        t_kernel = device_ms(torch, lambda: agg.stale_aggregate_flat(
+            p, buf, mask, beta=beta))
+        t_plain = device_ms(torch, lambda: agg.stale_aggregate_plain(
+            p, buf, mask, beta=beta), reps=5, trials=20)
+        t_lib = device_ms(torch, lambda: torch.addmv(p, bt, mask,
+                                                     alpha=-beta / a))
+        nbytes = (c + 2) * n * 4 + c * 4
+        bound, by = _bound(nbytes, 2 * c * n + n, H100_F32_FLOPS)
+        rows[(n, c)] = dict(max_abs_err=err, fault_err=fault, ms=t_kernel,
+                            plain_ms=t_plain, library_ms=t_lib,
+                            bound_ms=bound, bound_by=by)
+        print(f"[mobile] {tag} Eq. 8 on the path's inputs N={n} C={c}: "
+              f"err={err:.3e} (tol {tol:.1e}), planted fault {fault:.3e} "
+              f"rejected; kernel={t_kernel * 1e3:.2f} us  plain="
+              f"{t_plain * 1e3:.2f} us  addmv={t_lib * 1e3:.2f} us  "
+              f"bound={bound * 1e3:.2f} us")
+    return rows
+
+
+def _params_err(torch, mods, got, want):
+    """Largest |got - want| - (atol + rtol |want|) over the leaves (<= 0
+    when every element is within tolerance), and the largest |got - want|."""
+    worst, big = -math.inf, 0.0
+    for g, w in zip(mods.tree_leaves(got), mods.tree_leaves(want)):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        d = (g - w).abs()
+        worst = max(worst, float((d - MOBILE_PARAM_ATOL
+                                  - MOBILE_PARAM_RTOL * w.abs()).max()))
+        big = max(big, float(d.max()))
+    return worst, big
+
+
+def phase_mobile_edge(torch, agg, mods, smi, *, device="cuda", reduce=False):
+    """The mobility sweep, the scenario matrix, the card-side goldens and a
+    traced run, with every Eq.-8 launch counted and its shapes noted; then
+    the kernel held on the path's own inputs, and the sweep's 4-cell
+    20 m/s point run again on the CPU (host numbers bitwise, params within
+    float32 tolerance).  ``reduce`` shrinks the UE counts for a CPU
+    rehearsal."""
+    tag = f"({smi})"
+    n_sweep = 128 if reduce else MOBILITY_N_UES
+    n_scen = 32 if reduce else SCENARIO_N_UES
+    out = {"sweep": [], "matrix": []}
+    seen, first, orig = _capture_eq8(agg)
+    agg.LAUNCHES = 0
+    try:
+        # --- mobility sweep: cold (fresh engine) and warm ---------------
+        for n_cells in MOBILITY_CELLS:
+            for speed in MOBILITY_SPEEDS:
+                cfg, data = _mobile_setup(mods, n_sweep, a=n_sweep // 16,
+                                          speed=speed, n_cells=n_cells,
+                                          step_s=1.0)
+                model = mods.build_model(cfg.model)
+                engine = mods.SimulationEngine(model, cfg.fl, "perfed",
+                                               device=device)
+                walls, res = [], None
+                for _ in ("cold", "warm"):
+                    before, shapes0 = agg.LAUNCHES, collections.Counter(seen)
+                    t0 = time.perf_counter()
+                    res = mods.run_simulation(
+                        cfg, model, mods.partition_noniid(data, n_sweep,
+                                                          n_labels=4, seed=0),
+                        algorithm="perfed", mode="semi",
+                        bandwidth_policy="equal",
+                        max_rounds=MOBILITY_ROUNDS, eval_every=0, seed=0,
+                        engine=engine, device=device)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    launched = agg.LAUNCHES - before
+                    shapes = dict(collections.Counter(seen) - shapes0)
+                rounds = int(res.pi.shape[0])
+                check(rounds == MOBILITY_ROUNDS,
+                      f"mobility point v={speed} cells={n_cells} closed "
+                      f"{rounds} rounds")
+                check(n_cells == 1 or res.cloud_rounds == MOBILITY_ROUNDS // 4,
+                      f"mobility point v={speed} cells={n_cells}: "
+                      f"{res.cloud_rounds} cloud merges")
+                pt = dict(speed_mps=speed, n_cells=n_cells, rounds=rounds,
+                          rounds_per_s_cold=rounds / walls[0],
+                          rounds_per_s_warm=rounds / walls[1],
+                          handovers=res.handovers,
+                          cloud_rounds=res.cloud_rounds,
+                          sim_time_s=res.total_time,
+                          payload_dispatches=res.payload_dispatches,
+                          eq8_launches=launched,
+                          eq8_shapes={f"{n}x{c}": k
+                                      for (n, c), k in shapes.items()})
+                out["sweep"].append(pt)
+                if n_cells == 4 and speed == 20.0:
+                    out["cpu_ref"] = (cfg, data, res)
+                print(f"[mobile] {tag} sweep {n_sweep} UEs A={n_sweep // 16}"
+                      f" v={speed:g} m/s cells={n_cells}: "
+                      f"{pt['rounds_per_s_cold']:.3f} rounds/s cold, "
+                      f"{pt['rounds_per_s_warm']:.3f} warm; handovers "
+                      f"{res.handovers}, cloud merges {res.cloud_rounds}, "
+                      f"simulated {res.total_time:.4f} s, dispatches "
+                      f"{res.payload_dispatches}; Eq.-8 launches {launched} "
+                      f"(warm run) at (N, C) {shapes}")
+        moving = [p for p in out["sweep"]
+                  if p["speed_mps"] > 0 and p["n_cells"] > 1]
+        check(reduce or any(p["handovers"] > 0 for p in moving),
+              "no handover in any moving multi-cell point")
+
+        # --- scenario matrix on the 3-cell hierarchy ----------------------
+        for name, scen in SCENARIOS.items():
+            for policy in SCENARIO_POLICIES:
+                cfg, data = _mobile_setup(
+                    mods, n_scen, a=n_scen // 8, speed=20.0, n_cells=3,
+                    step_s=0.2, scenario=scen,
+                    data_n=max(1250, 10 * n_scen))
+                model = mods.build_model(cfg.model)
+                before = agg.LAUNCHES
+                t0 = time.perf_counter()
+                res = mods.run_simulation(
+                    cfg, model, mods.partition_noniid(data, n_scen,
+                                                      n_labels=4, seed=0),
+                    algorithm="perfed", mode="semi", bandwidth_policy=policy,
+                    max_rounds=SCENARIO_ROUNDS, eval_every=0, seed=0,
+                    device=device)
+                wall = time.perf_counter() - t0
+                pt = dict(scenario=name, policy=policy,
+                          rounds=int(res.pi.shape[0]), wall_s=wall,
+                          sim_time_s=res.total_time,
+                          wait_fraction=res.wait_fraction,
+                          handovers=res.handovers, ue_joins=res.ue_joins,
+                          ue_departures=res.ue_departures,
+                          label_drifts=res.label_drifts,
+                          aborted_rounds=res.aborted_rounds,
+                          pending_uploads=res.pending_uploads,
+                          eq8_launches=agg.LAUNCHES - before)
+                out["matrix"].append(pt)
+                check(pt["rounds"] == SCENARIO_ROUNDS
+                      and pt["aborted_rounds"] == 0,
+                      f"scenario {name}/{policy}: {pt['rounds']}/"
+                      f"{SCENARIO_ROUNDS} rounds, {pt['aborted_rounds']} "
+                      f"aborted")
+                print(f"[mobile] {tag} scenario {name:<11s} {policy:<8s}: "
+                      f"{pt['rounds']} rounds in {wall:.3f} s, simulated "
+                      f"{res.total_time:.4f} s, joins {res.ue_joins}, "
+                      f"departures {res.ue_departures}, drifts "
+                      f"{res.label_drifts}, aborted {res.aborted_rounds}, "
+                      f"pending {res.pending_uploads}, handovers "
+                      f"{res.handovers}, wait {res.wait_fraction:.4f}, "
+                      f"Eq.-8 launches {pt['eq8_launches']}")
+        churny = [p for p in out["matrix"] if p["scenario"] != "static"]
+        check(any(p["ue_joins"] > 0 for p in churny)
+              and any(p["ue_departures"] > 0 for p in churny),
+              "the scenario matrix fired no join or no departure")
+
+        # --- card-side goldens -------------------------------------------
+        degen = _golden_run(mods, device, mobility=mods.MobilityConfig(
+            enabled=True, speed_mps=0.0, n_cells=1, hierarchy=False))
+        rel, rel_g = check_golden(degen, "degenerate mobile")
+        check(degen.handovers == degen.cloud_rounds == 0,
+              "degenerate mobile run handed over or merged")
+        print(f"[mobile] {tag} degenerate mobile (1 cell, 0 m/s) = the "
+              f"static golden: times/Π/wait/dispatches bitwise; losses rel "
+              f"err {rel:.2e}, global {rel_g:.2e} (rtol 1e-4)")
+        runs = {}
+        for label, scen in (("closed", None), ("zero-rate", {"enabled": True})):
+            cfg, data = _mobile_setup(mods, n_scen, a=n_scen // 8,
+                                      speed=20.0, n_cells=3, step_s=0.2,
+                                      scenario=scen,
+                                      data_n=max(1250, 10 * n_scen))
+            runs[label] = mods.run_simulation(
+                cfg, mods.build_model(cfg.model),
+                mods.partition_noniid(data, n_scen, n_labels=4, seed=0),
+                algorithm="perfed", mode="semi", bandwidth_policy="equal",
+                max_rounds=SCENARIO_ROUNDS, eval_every=0, seed=0,
+                device=device)
+        diff = host_mismatch(host_numbers(runs["closed"]),
+                             host_numbers(runs["zero-rate"]))
+        check(not diff, f"zero-rate scenario differs from the closed world "
+              f"in {diff}")
+        worst, pdiff = _params_err(torch, mods, runs["zero-rate"].params,
+                                   runs["closed"].params)
+        check(worst <= 0.0, f"zero-rate scenario params differ from the "
+              f"closed world by {pdiff}")
+        print(f"[mobile] {tag} zero-rate scenario = closed world on the "
+              f"3-cell hierarchy: every host number bitwise; params max "
+              f"|diff| {pdiff:.3e}")
+
+        # --- one traced run on the 4-cell 20 m/s point ---------------------
+        cfg, data, _ = out["cpu_ref"]
+        trace_dir = os.path.join(ROOT, "build", "mobile_edge_trace")
+        if os.path.exists(os.path.join(trace_dir, "metrics.jsonl")):
+            os.remove(os.path.join(trace_dir, "metrics.jsonl"))
+        before = agg.LAUNCHES
+        t0 = time.perf_counter()
+        traced = mods.run_simulation(
+            cfg, mods.build_model(cfg.model),
+            mods.partition_noniid(data, n_sweep, n_labels=4, seed=0),
+            algorithm="perfed", mode="semi", bandwidth_policy="equal",
+            max_rounds=MOBILITY_ROUNDS, eval_every=0, seed=0, device=device,
+            tracer=mods.Tracer(device=True), trace_dir=trace_dir)
+        wall = time.perf_counter() - t0
+        traced_launches = agg.LAUNCHES - before
+    finally:
+        agg.stale_aggregate_flat = orig
+    launches = agg.LAUNCHES
+    rows = mods.read_metrics(traced.telemetry["trace_path"])
+    errs = mods.validate_rows(rows)
+    check(not errs, f"the traced mobile run's JSONL fails validation: {errs}")
+    diff = host_mismatch(host_numbers(traced), host_numbers(out["cpu_ref"][2]))
+    check(not diff, f"tracing changed the mobile trajectory: {diff}")
+    t = traced.telemetry
+    host = {k: round(v, 4) for k, v in sorted(t["phase_s"].items(),
+                                               key=lambda kv: -kv[1])}
+    dev = {k: round(v, 4) for k, v in sorted(t["device_phase_s"].items(),
+                                              key=lambda kv: -kv[1])}
+    out["traced"] = dict(wall_s=wall, phase_s=t["phase_s"],
+                         device_s=t["device_s"],
+                         device_phase_s=t["device_phase_s"],
+                         counts=t["counts"], eq8_launches=traced_launches)
+    print(f"[mobile] {tag} traced 4-cell 20 m/s run: {wall:.3f} s wall "
+          f"({t['rounds']} rounds, JSONL valid, {len(rows) - 2} records); "
+          f"device (synchronised) {t['device_s']:.4f} s by phase {dev}; "
+          f"host phases {host}; counts {dict(sorted(t['counts'].items()))}")
+
+    if device == "cuda":
+        check(launches > 0, "the mobile path launched the Eq.-8 kernel 0 "
+              "times")
+    out["launches"] = launches
+    out["shapes"] = dict(seen)
+    print(f"[mobile] {tag} Eq.-8 launches on the mobile path: {launches} at "
+          f"(N, C) {dict(sorted(seen.items()))}")
+    out["holds"] = (hold_eq8_on_path(torch, agg, first, tag)
+                    if device == "cuda" else {})
+
+    # --- the 4-cell 20 m/s point on the CPU, against the card's run --------
+    if device == "cuda":
+        cfg, data, card = out["cpu_ref"]
+        t0 = time.perf_counter()
+        cpu = mods.run_simulation(
+            cfg, mods.build_model(cfg.model),
+            mods.partition_noniid(data, n_sweep, n_labels=4, seed=0),
+            algorithm="perfed", mode="semi", bandwidth_policy="equal",
+            max_rounds=MOBILITY_ROUNDS, eval_every=0, seed=0, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        a, b = host_numbers(card), host_numbers(cpu)
+        diff = host_mismatch(a, b)
+        check(not diff, f"card and CPU differ in host numbers {diff}")
+        planted = dict(a, total_time=(
+            float.fromhex(a["total_time"]) + 1e-12).hex())
+        check(host_mismatch(planted, b), "the host comparison accepts a "
+              "planted fault")
+        worst, big = _params_err(torch, mods, card.params, cpu.params)
+        check(worst <= 0.0, f"card and CPU params differ by {big} (over "
+              f"rtol {MOBILE_PARAM_RTOL}, atol {MOBILE_PARAM_ATOL})")
+        out["cpu_check"] = dict(cpu_wall_s=cpu_wall, params_max_abs=big)
+        print(f"[mobile] {tag} 4-cell 20 m/s point on the CPU "
+              f"({cpu_wall:.2f} s): all {len(a)} host fields bitwise equal to "
+              f"the card's (a planted 1e-12 s shift is rejected); final "
+              f"params max |card - CPU| {big:.3e} (rtol "
+              f"{MOBILE_PARAM_RTOL}, atol {MOBILE_PARAM_ATOL})")
+    out.pop("cpu_ref")
+    return out
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
-    from repro_torch.config import ExperimentConfig, FLConfig
+    from repro_torch.config import (ExperimentConfig, FLConfig,
+                                    MobilityConfig, ScenarioConfig)
     from repro_torch.configs import get_config
     from repro_torch.core import perfed, semi_sync
     from repro_torch.core.scheduler import (greedy_schedule,
@@ -1706,9 +2096,10 @@ def import_port():
     from repro_torch.launch import serve, train, train_e2e
     from repro_torch.models import build_model
     from repro_torch.models import layers, ssm
-    from repro_torch.obs.trace import Tracer
+    from repro_torch.obs import Tracer, validate_rows
     from repro_torch.optim import clip_by_global_norm, make_optimizer
     from repro_torch.optim.optimizers import adam_update_plain
+    from repro_torch.utils.metrics import read_metrics
     from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
                                         tree_paths)
     return types.SimpleNamespace(**locals())
@@ -1739,7 +2130,7 @@ def main():
     from repro_torch.kernels import stale_aggregate as agg
 
     t_start = time.perf_counter()
-    timed("environment", phase_environment, torch)
+    smi = timed("environment", phase_environment, torch)
     ptxas = timed("build", phase_build, [agg, fa, da, ssd, adam])
     mods = import_port()
     # the main path's shapes: mnist_dnn's N with the server's close (C = A
@@ -1761,6 +2152,7 @@ def main():
                            agg, mods)
     timed("scale point", phase_scale, torch, agg, mods)
     timed("golden", phase_golden, torch, mods)
+    mobile = timed("mobile edge", phase_mobile_edge, torch, agg, mods, smi)
     timed("serve", phase_serve, torch, fa, da, mods,
           ["--full", "--batch", "4", "--prompt-len", "2048", "--gen", "32",
            "--cache-len", "4096"])
@@ -1790,7 +2182,13 @@ def main():
          "source": "src/repro_torch/kernels/csrc/stale_aggregate.cu",
          "replaces": "src/repro/kernels/stale_aggregate.py:50",
          "launches": launches, "shape": list(shape), "dtype": "float32",
-         "ptxas": ptxas["stale_aggregate.cu"], **row},
+         "ptxas": ptxas["stale_aggregate.cu"], **row,
+         "mobile_edge": {
+             "launches": mobile["launches"],
+             "shapes": {f"{n}x{c}": k
+                        for (n, c), k in sorted(mobile["shapes"].items())},
+             "on_path_inputs": {f"{n}x{c}": r for (n, c), r
+                                in sorted(mobile["holds"].items())}}},
         {"name": "fused_adam_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
          "replaces": "src/repro/kernels/fused_adam.py:36",

@@ -3,19 +3,23 @@
 Combines all the pieces:
 
   wireless.EdgeNetwork   — geometry, Rayleigh fading, heterogeneous CPUs
-  core.bandwidth         — Theorem-4 allocation (or equal-split baseline)
+  core.bandwidth         — Theorem-2/4 allocations (or equal-split baseline)
   core.scheduler         — SchedulingPolicy (equal / rates-derived η)
   core.server            — Algorithm 1 round protocol (sync / semi / async)
   fl.engine              — batched (vmap-bucketed) payload computation
-  fl.driver              — the event loop (heap, drain batching, fused
+  fl.driver              — the ONE event loop (heap, drain batching, fused
                            dispatch, SimResult)
   fl.client              — payload math (perfed / fedavg / fedprox / pfedme)
 
 ``run_simulation`` is a thin configuration of ``fl.driver.run_event_loop``:
 the ``StaticAdapter`` below contributes a frozen single-cell drop, a static
 Theorem-4 (or equal-split) bandwidth allocation, and one global
-``SemiSyncServer``.  The mobile multi-cell path (``cfg.mobility.enabled``)
-is not ported yet and raises ``NotImplementedError``.
+``SemiSyncServer``; everything event-driven lives in the shared driver.
+The mobile multi-cell path (``cfg.mobility.enabled``) configures the same
+loop with a ``MobileAdapter`` — see ``fl/mobile.py``.
+
+The port of the JAX package's ``fl/simulation.py``; entry points run on the
+card (``device="cuda"``) unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -56,13 +60,22 @@ class StaticAdapter(TopologyAdapter):
             raise ValueError(f"unknown bandwidth policy {bandwidth_policy!r}")
         self._fl, self._mode, self._n = fl, mode, n
         self.server: Optional[SemiSyncServer] = None
+        # open-world scenario state (inert when cfg.scenario is off); the
+        # static drop has no mobility, so churn here is joins/leaves/drift
+        # over a frozen geometry (bandwidth keeps the drop-time split)
+        self._adaptive_a = cfg.scenario.enabled and cfg.scenario.adaptive_cell_a
+        self._active_mask: Optional[np.ndarray] = None
 
+    # --- protocol ------------------------------------------------------
     def make_servers(self, params0) -> None:
         fl = self._fl
         self.server = SemiSyncServer(params0, ServerConfig(
             n_ues=self._n, participants_per_round=fl.participants_per_round,
             staleness_bound=fl.staleness_bound, beta=fl.beta,
             mode=self._mode, staleness_discount=fl.staleness_discount))
+        if self._active_mask is not None:
+            self.server.ue_active[:] = self._active_mask
+            self.pre_drain()
 
     def rounds_done(self) -> int:
         return self.server.round
@@ -71,6 +84,7 @@ class StaticAdapter(TopologyAdapter):
         return self.server.arrivals_until_round()
 
     def participants(self, cell: int) -> int:
+        # effective round size (== A unless clamped by the live cap)
         return self.server.target
 
     def on_arrival(self, cell, ue, payload):
@@ -84,6 +98,37 @@ class StaticAdapter(TopologyAdapter):
 
     def protocol(self):
         return self.server
+
+    # --- open-world scenario hooks -------------------------------------
+    def bind_active(self, mask: np.ndarray) -> None:
+        self._active_mask = mask        # shared with the scenario runtime
+
+    def pre_drain(self) -> None:
+        # cap = pending + in-flight (live members whose upload is already
+        # held can't produce another arrival before the close)
+        if self._adaptive_a and self._active_mask is not None:
+            live = int(self._active_mask.sum())
+            pend = self.server.pending_ue_set()
+            live_pending = sum(1 for u in pend if self._active_mask[u])
+            self.server.set_live_cap(live, live - live_pending)
+
+    def flush_ready(self):
+        if not (self._adaptive_a and self._active_mask is not None):
+            return []
+        res = self.server.flush()
+        return [res] if res is not None else []
+
+    def on_join(self, ue: int):
+        self.server.activate(ue)
+        return self.server.params
+
+    def on_leave(self, ue: int) -> None:
+        self.server.deactivate(ue)
+
+    def cell_membership(self):
+        if self._active_mask is None:
+            return None
+        return [int(self._active_mask.sum())]
 
 
 def run_simulation(cfg: ExperimentConfig, model, clients: List[ClientDataset],
@@ -99,11 +144,19 @@ def run_simulation(cfg: ExperimentConfig, model, clients: List[ClientDataset],
                    **obs_kw) -> SimResult:
     """Run the paper's simulation on ``device`` (the card by default; the
     CPU only when asked).  ``obs_kw`` forwards the telemetry knobs
-    (``tracer`` / ``profile_dir`` / ``reporter``) to ``run_event_loop``."""
+    (``tracer`` / ``trace_dir`` / ``profile_dir`` / ``reporter``) to
+    ``run_event_loop``."""
     if cfg.mobility.enabled:
-        raise NotImplementedError(
-            "the mobile multi-cell path (cfg.mobility) is not ported yet "
-            "(ROADMAP queue 1, mobile multi-cell path)")
+        # mobile multi-cell path (time-varying channels, handovers,
+        # optional cell→cloud hierarchy) — fl/mobile.py; the static path
+        # below stays bitwise untouched when the flag is off
+        from repro_torch.fl.mobile import run_mobile_simulation
+        return run_mobile_simulation(
+            cfg, model, clients, algorithm=algorithm, mode=mode,
+            bandwidth_policy=bandwidth_policy, max_rounds=max_rounds,
+            eval_every=eval_every, eval_clients=eval_clients, seed=seed,
+            name=name, verbose=verbose, payload_mode=payload_mode,
+            engine=engine, device=device, **obs_kw)
     adapter = StaticAdapter(cfg, len(clients), seed=seed,
                             bandwidth_policy=bandwidth_policy, mode=mode)
     return run_event_loop(cfg, model, clients, adapter,

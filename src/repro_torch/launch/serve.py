@@ -60,7 +60,7 @@ def run(argv=None) -> types.SimpleNamespace:
         cfg = cfg.reduced()
     if cfg.family == "audio":
         raise NotImplementedError("the audio family is not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
+                                  "(ROADMAP queue 1, model zoo)")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen)

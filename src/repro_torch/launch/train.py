@@ -10,9 +10,10 @@ The port of the JAX package's ``launch/train.py``, with the same CLI plus
   architecture, SGD with the Eq.-7 meta-gradient, on batches drawn from the
   synthetic LM corpus (``--reduce`` for a tiny same-family model).
 
-``--ckpt-dir`` and ``--metrics-dir`` raise ``NotImplementedError``:
-checkpoints and metrics files are not ported yet (ROADMAP queue 1, items 12
-and 9).
+``--metrics-dir`` writes the fl mode's eval points to
+``<dir>/metrics.jsonl`` through ``utils.metrics.MetricsLogger``, as the
+reference does.  ``--ckpt-dir`` raises ``NotImplementedError``: checkpoints
+are not ported yet (ROADMAP queue 1, checkpoints).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
@@ -61,10 +62,7 @@ def run(argv=None):
     args = _parser().parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "yet (ROADMAP queue 1, item 12)")
-    if args.metrics_dir:
-        raise NotImplementedError("--metrics-dir: metrics files are not "
-                                  "ported yet (ROADMAP queue 1, item 9)")
+                                  "yet (ROADMAP queue 1, checkpoints)")
 
     from repro_torch.config import (ExperimentConfig, apply_overrides,
                                     parse_cli_overrides)
@@ -107,6 +105,15 @@ def run_fl(cfg, args, device):
     res = run_simulation(cfg, model, clients, algorithm=args.algo,
                          mode=args.sync_mode, bandwidth_policy=args.bandwidth,
                          seed=args.seed, verbose=True, device=device)
+    if args.metrics_dir:
+        from repro_torch.utils.metrics import MetricsLogger
+        with MetricsLogger(args.metrics_dir,
+                           meta={"arch": args.arch, "algo": args.algo,
+                                 "mode": args.sync_mode}) as log:
+            for i in range(len(res.times)):
+                log.log(step=int(res.rounds[i]), sim_t=float(res.times[i]),
+                        ploss=float(res.losses[i]),
+                        gloss=float(res.global_losses[i]))
     print(f"\nfinal: t={res.total_time:.2f}s rounds={res.rounds[-1]} "
           f"personalized_loss={res.losses[-1]:.4f} "
           f"global_loss={res.global_losses[-1]:.4f} "
@@ -133,7 +140,7 @@ def run_scale(cfg, args, device):
     mcfg = cfg.model.reduced() if args.reduce else cfg.model
     if mcfg.family == "audio":
         raise NotImplementedError("the audio family is not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
+                                  "(ROADMAP queue 1, model zoo)")
     model = build_model(mcfg)
     optimizer = make_optimizer("sgd")
     step_fn = semi_sync.make_train_step(model, replace(cfg, model=mcfg),

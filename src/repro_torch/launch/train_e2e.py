@@ -8,7 +8,7 @@ round loop is ``train_rounds``, which takes any model and config, so other
 callers drive other models (full-width mamba2-370m in ``chip_smoke.py``)
 through the same loop.  Batches are drawn with numpy from a seed per round.
 ``--ckpt-dir`` raises: checkpoints are not ported yet (ROADMAP queue 1,
-item 12).
+checkpoints).
 
     PYTHONPATH=src python -m repro_torch.launch.train_e2e --rounds 60
     PYTHONPATH=src python -m repro_torch.launch.train_e2e --rounds 2 \
@@ -134,7 +134,7 @@ def main(argv=None) -> int:
                  "path is the plain β-SGD update)")
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "yet (ROADMAP queue 1, item 12)")
+                                  "yet (ROADMAP queue 1, checkpoints)")
     device = resolve_device(args.device)
 
     mcfg = model_cfg(args.model_scale)

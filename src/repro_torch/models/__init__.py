@@ -1,3 +1,3 @@
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import MODEL_FAMILIES, build_model
 
-__all__ = ["build_model"]
+__all__ = ["MODEL_FAMILIES", "build_model"]

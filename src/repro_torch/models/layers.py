@@ -17,8 +17,8 @@ Differences from the reference, none of which changes a result:
 * ``preferred_element_type=float32`` becomes float32 operands (a bf16 →
   float32 cast is exact, so the products are the same).
 
-MLA, MoE and cross-attention are not ported yet (ROADMAP queue 1, item
-13): ``TransformerLM`` and ``attention_apply`` raise on them.
+MLA, MoE and cross-attention are not ported yet (ROADMAP queue 1, model
+zoo): ``TransformerLM`` and ``attention_apply`` raise on them.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from repro_torch.config import ModelConfig
 
 Params = Dict[str, Any]
 
-NOT_PORTED = "not ported yet (ROADMAP queue 1, item 13)"
+NOT_PORTED = "not ported yet (ROADMAP queue 1, model zoo)"
 
 
 # ---------------------------------------------------------------------------

@@ -12,21 +12,35 @@ from repro_torch.models.transformer import TransformerLM
 
 _SMALL = {"mnist_dnn": small.MnistDNN, "lenet5": small.LeNet5,
           "char_lstm": small.CharLSTM}
-_NOT_PORTED = ("moe", "hybrid", "vlm", "audio")
 
 
-def build_model(cfg: ModelConfig):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
-            f"(ROADMAP queue 1, model zoo)")
-    if cfg.family == "dense":
-        return TransformerLM(cfg)
-    if cfg.family == "ssm":
-        return Mamba2LM(cfg)
-    if cfg.family != "small":
-        raise ValueError(f"unknown model family {cfg.family!r}")
+def _small(cfg):
     for k, builder in _SMALL.items():
         if cfg.name.startswith(k):
             return builder(cfg)
     raise ValueError(f"unknown small model {cfg.name!r}")
+
+
+def _not_ported(cfg):
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not ported yet "
+        f"(ROADMAP queue 1, model zoo)")
+
+
+# the JAX package's family names; the unported ones raise when built
+MODEL_FAMILIES = {
+    "dense": TransformerLM,
+    "moe": _not_ported,
+    "ssm": Mamba2LM,
+    "hybrid": _not_ported,
+    "vlm": _not_ported,
+    "audio": _not_ported,
+    "small": _small,
+}
+
+
+def build_model(cfg: ModelConfig):
+    if cfg.family not in MODEL_FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r} "
+                         f"(have {sorted(MODEL_FAMILIES)})")
+    return MODEL_FAMILIES[cfg.family](cfg)

@@ -15,7 +15,7 @@ With ``cfg.attn_impl == "pallas"`` a call without a cache (``forward``,
 as in the reference.  ``prefill`` and ``decode_step`` write the cache in
 place and return it.
 
-MoE, MLA and cross-attention are not ported yet (ROADMAP queue 1, item 13).
+MoE, MLA and cross-attention are not ported yet (ROADMAP queue 1, model zoo).
 """
 from __future__ import annotations
 

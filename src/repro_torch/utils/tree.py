@@ -50,6 +50,11 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_add(a, b):
+    """Leaf-wise a + b."""
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a, b):
     """Leaf-wise a - b."""
     return tree_map(torch.sub, a, b)
@@ -63,6 +68,35 @@ def tree_scale(a, s):
 def tree_axpy(alpha, x, y):
     """Leaf-wise alpha * x + y (BLAS axpy)."""
     return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Sum over all leaves of <a_i, b_i> (flattened inner product), summed
+    in leaf order."""
+    total = torch.zeros((), dtype=tree_leaves(a)[0].dtype,
+                        device=tree_leaves(a)[0].device)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        total = total + torch.sum(x.reshape(-1) * y.reshape(-1))
+    return total
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_size(a) -> int:
+    """Total number of scalar parameters in the tree (python int)."""
+    return sum(int(x.numel()) for x in tree_leaves(a))
+
+
+def tree_bytes(a) -> int:
+    """Total number of bytes of the tree (python int)."""
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(a))
+
+
+def tree_cast(a, dtype):
+    """Cast every floating leaf to ``dtype``; leave integer leaves alone."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)
 
 
 def tree_norm(a) -> torch.Tensor:

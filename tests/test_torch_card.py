@@ -29,7 +29,9 @@ the grid's edges (N under a slice, a few groups past a full pass, C 0 and
 256, rows only 4-byte aligned).  Fused Adam: bf16 p within one bf16
 ulp, f32 p within 1e-6 relative, m and v within 1e-6 relative.  Every
 kernel check is also shown a planted fault (the plain version with it),
-which it must reject.
+which it must reject.  The mobile path's cell→cloud hierarchy and a moving
+3-cell open-world run are held against the same on the CPU: protocol
+decisions and host numbers bitwise, params within rtol 1e-5, atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -495,3 +497,110 @@ def test_fused_adam_kernel_rejects_what_it_does_not_take():
                              t=1)
     with pytest.raises(ValueError):
         adam.fused_adam_flat(p, m.cpu(), v, grad, lr=1e-3, t=1)
+
+
+# ---------------------------------------------------------------------------
+# the mobile multi-cell path: the same runs on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+def _hier_servers(device):
+    from repro_torch.core.hierarchy import HierarchicalServer, HierarchyConfig
+    from repro_torch.core.server import ServerConfig
+    rng = np.random.default_rng(0)
+    params = {"w": torch.from_numpy(rng.normal(size=4096).astype(
+        np.float32)).to(device)}
+    kw = dict(n_ues=12, participants_per_round=3, staleness_bound=2,
+              beta=0.1, staleness_discount=0.6)
+    return HierarchicalServer(
+        params, [ServerConfig(**kw) for _ in range(3)],
+        HierarchyConfig(n_cells=3, cloud_sync_every=2),
+        [np.arange(c, 12, 3) for c in range(3)])
+
+
+def test_hierarchy_segment_feed_on_card_matches_cpu():
+    """Interleaved cells (the gather of lanes), one-cell drains (the
+    slice), handovers and cloud merges: each round closes through the
+    Eq.-8 kernel on the card, and every protocol decision and param
+    matches the CPU's plain version."""
+    _need_card()
+    card, cpu = _hier_servers("cuda"), _hier_servers("cpu")
+    rng = np.random.default_rng(1)
+    before = agg.LAUNCHES
+    for k in range(9):
+        card.handover(k, int(card.member_cell[k]), (k + 1) % 3)
+        cpu.handover(k, int(cpu.member_cell[k]), (k + 1) % 3)
+        # one drain: other cells' lanes short of their close, shuffled,
+        # then the closing cell's last lane (the driver's drain invariant)
+        close = k % 3
+        cells = []
+        for c in range(3):
+            need = card.arrivals_until_round(c)
+            cells += [c] * (need if c == close else
+                            int(rng.integers(0, need)))
+        cells.remove(close)
+        rng.shuffle(cells)
+        cells = np.array(cells + [close])
+        ues = rng.permutation(12)[:len(cells)]
+        pay = rng.normal(size=(len(cells), 4096)).astype(np.float32)
+        got = card.on_arrival_batch(cells, ues,
+                                    {"w": torch.from_numpy(pay).cuda()})
+        want = cpu.on_arrival_batch(cells, ues, {"w": torch.from_numpy(pay)})
+        assert (got is None) == (want is None)
+        if got is not None:
+            for key in ("round", "cell", "distribute", "cloud_synced"):
+                assert got[key] == want[key]
+            torch.testing.assert_close(got["params"]["w"].cpu(),
+                                       want["params"]["w"], rtol=1e-5,
+                                       atol=1e-6)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES > before
+    assert card.cloud_rounds == cpu.cloud_rounds > 0
+    assert card.departed_arrivals == cpu.departed_arrivals
+    np.testing.assert_array_equal(card.pi_matrix(), cpu.pi_matrix())
+
+
+def test_mobile_run_on_card_matches_cpu():
+    """The moving 3-cell hierarchy end to end: host event math bitwise,
+    final params within float32 tolerance."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.config import (ExperimentConfig, FLConfig,
+                                    MobilityConfig, ScenarioConfig)
+    from repro_torch.configs import get_config
+    from repro_torch.data import partition_noniid, synthetic_mnist
+    from repro_torch.fl.simulation import run_simulation
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves
+    cfg = ExperimentConfig(
+        model=get_config("mnist_dnn"),
+        fl=FLConfig(n_ues=24, participants_per_round=6, staleness_bound=4,
+                    alpha=0.03, beta=0.07, first_order=True, inner_batch=4,
+                    outer_batch=4, hessian_batch=4),
+        mobility=MobilityConfig(enabled=True, model="random_waypoint",
+                                speed_mps=150.0, n_cells=3, hierarchy=True,
+                                cloud_sync_every=3, step_s=0.05),
+        scenario=ScenarioConfig(enabled=True, initial_active_frac=0.75,
+                                arrival_rate=4.0, departure_rate=0.3,
+                                min_active=4, drift_rate=0.5))
+    data = synthetic_mnist(n=1200, seed=21)
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = run_simulation(
+            cfg, build_model(cfg.model),
+            partition_noniid(data, 24, n_labels=4, seed=0),
+            bandwidth_policy="theorem2", max_rounds=6, eval_every=3, seed=0,
+            device=device)
+    card, cpu = out["cuda"], out["cpu"]
+    for f in dataclasses.fields(card):
+        if f.name in ("params", "losses", "global_losses", "accs", "name",
+                      "telemetry"):
+            continue
+        np.testing.assert_array_equal(getattr(card, f.name),
+                                      getattr(cpu, f.name), err_msg=f.name)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-5, atol=1e-6)
+    for g, w in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
+    assert card.cloud_rounds == 2 and card.ue_departures > 0
+    assert card.label_drifts > 0

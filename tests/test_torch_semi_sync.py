@@ -300,16 +300,26 @@ def test_train_step_matches_reference(perfed_step):
 # the launchers, on the CPU
 # ---------------------------------------------------------------------------
 
-def test_train_scale_mode_runs_reduced_on_cpu():
+def test_train_scale_mode_runs_reduced_on_cpu(tmp_path):
     state, metrics = train.run(["--mode", "scale", "--arch", "mamba2_370m",
                                 "--reduce", "--device", "cpu",
                                 "--steps", "2"])
     assert int(state.step) == 2
     assert np.isfinite(float(metrics["loss"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, checkpoints"):
         train.main(["--mode", "scale", "--ckpt-dir", "x", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        train.main(["--metrics-dir", "x", "--device", "cpu"])
+    # --metrics-dir writes the fl mode's eval points as JSONL
+    res = train.run(["--metrics-dir", str(tmp_path), "--device", "cpu",
+                     "fl.n_ues=4", "fl.participants_per_round=2",
+                     "fl.rounds=2", "fl.inner_batch=8", "fl.outer_batch=8",
+                     "fl.hessian_batch=8"])
+    from repro_torch.utils.metrics import read_metrics
+    rows = read_metrics(str(tmp_path / "metrics.jsonl"))
+    assert rows[0]["_meta"] == {"arch": "mnist_dnn", "algo": "perfed",
+                                "mode": "semi"}
+    assert [r["step"] for r in rows[1:]] == res.rounds.tolist() == [0, 2]
+    np.testing.assert_allclose([r["ploss"] for r in rows[1:]], res.losses)
 
 
 @pytest.mark.parametrize("extra", [[], ["--server-opt", "adam"],

@@ -327,6 +327,12 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                       "repro_torch."))
 for name in names:
     importlib.import_module(name)
+new = {"repro_torch.core.convergence", "repro_torch.core.hierarchy",
+       "repro_torch.fl.mobile", "repro_torch.fl.scenario",
+       "repro_torch.mobility", "repro_torch.mobility.models",
+       "repro_torch.mobility.multicell", "repro_torch.obs.recorder",
+       "repro_torch.utils.metrics"}
+assert new <= set(names), sorted(new - set(names))
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "repro"
        or m.startswith("repro.")]
@@ -342,8 +348,9 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, verdict = out.stdout.split()
-    # every module of the package, this slice's among them
-    assert verdict == "clean" and int(count) >= 40, out.stdout
+    # every module of the package, the mobile and open-world slice's among
+    # them
+    assert verdict == "clean" and int(count) >= 53, out.stdout
 
 
 def test_cuda_without_a_card_raises():
