@@ -23,7 +23,9 @@ and each prints its seconds:
    design's time, a constant from PERF.md, printed beside the new one but
    kept out of the kernels line; the SSD chunk in f32 at the mamba2
    scoring and prefill shapes, its rate over the j <= i pairs and over all
-   pairs, and its shared memory a CTA; fused Adam on
+   pairs, and its shared memory a CTA; flash also at recurrentgemma-2b's
+   local attention, MQA at head dim 256 with a 2,048 window, in bf16 (the
+   mma.sync route) and f32; fused Adam on
    mamba2's in_proj leaf with bf16 p, on an f32 leaf and a ragged N; a
    working set smaller than L2 is timed with L2 flushed before each call).
    Each bf16 attention check, the SSD check (twice: the j <= i mask
@@ -67,6 +69,25 @@ and each prints its seconds:
 10. serve mamba2: ``repro_torch.launch.serve --arch mamba2_370m --full``
    (batch 4, prompt 2,048, 32 tokens), then the SSD kernel against the
    plain version on layer 0's live prefill inputs;
+10b. score recurrentgemma-2b: full-width, full-depth recurrentgemma-2b
+   ``loss`` (bf16) with ``attn_impl="pallas"`` on the same two streams —
+   the flash kernel at head dim 256, one launch per attention block (8),
+   each held against the plain version on its own inputs — against
+   ``attn_impl="xla"``: the losses, every token's logits in bf16 and on an
+   f32 copy of the params (the f32 route), beside what a 1e-6 perturbation
+   of each RG-LRU scan moves them; flash with the causal mask dropped must
+   fail both logits checks;
+10c. serve recurrentgemma-2b: ``repro_torch.launch.serve --arch
+   recurrentgemma_2b --full`` (batch 4, prompt 2,048, 32 tokens, cache
+   4,096; the ring keeps the 2,048 window), the served logits held against
+   a teacher-forced forward over prompt + generated tokens, in bf16 and
+   served in f32 (``--dtype float32``); logits one step late must fail the
+   bf16 check, a conv tail that does not advance and a decode window one
+   key short the f32 one;
+10d. dense remainder: starcoder2-15b, nemotron-4-15b and deepseek-67b at
+   full width, depth cut to 2 layers (deepseek-67b whole is 134 GB of
+   bf16), each scored pallas against xla with 2 flash launches at D 128,
+   each held against the plain version;
 11. train mamba2: ``launch/train_e2e``'s round loop on full-width
    mamba2-370m (bf16, ``attn_impl="xla"``; 4 cohorts, A 2, S 2, batch 4,
    seq 256) with the server Adam for 3 rounds — the fused Adam kernel's
@@ -80,6 +101,7 @@ It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 """
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -640,8 +662,8 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
     ops = 4 * b * hq * d * _flash_pairs(sl, causal, window)
     bound, by = _bound(nbytes, ops, H100_BF16_FLOPS if elem == 2
                        else H100_F32_FLOPS)
-    first = FIRST_DESIGN_MS[("flash", str(dtype)[6:],
-                             (b, hq, hkv, sl, d, causal, window))]
+    first = FIRST_DESIGN_MS.get(("flash", str(dtype)[6:],
+                                 (b, hq, hkv, sl, d, causal, window)))
     row = dict(max_abs_err=err, max_row_rel_err=rel, ms=t_kernel,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
                bound_by=by, kernel_route=fa.route(dtype, d),
@@ -650,8 +672,8 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
           f"D={d} causal={causal} window={window}, route "
           f"{row['kernel_route']} ({row['smem_bytes']} B shared memory a "
           f"CTA): err={err:.3e} row rel={rel:.3e}  kernel={t_kernel:.3f} ms "
-          f"(first design, PERF.md: {first:.3f} ms)  "
-          f"plain={t_plain:.3f} ms  "
+          + (f"(first design, PERF.md: {first:.3f} ms)  " if first else "")
+          + f"plain={t_plain:.3f} ms  "
           f"sdpa={t_lib:.3f} ms  bound={bound:.3f} ms ({by}; "
           f"{ops / t_kernel / 1e9:.1f} TFLOP/s)")
     return row
@@ -731,6 +753,8 @@ def _decode_case(torch, da, F, dtype, b, hq, hkv, s, d):
 
 FLASH_SCORE_SHAPE = (2, 32, 4, 4096, 128, True, 0)
 FLASH_WINDOW_SHAPE = (2, 32, 4, 2047, 128, True, 512)
+# recurrentgemma-2b's local attention on the scoring streams: MQA, D 256
+FLASH_HYBRID_SHAPE = (2, 10, 1, 4096, 256, True, 2048)
 DECODE_SHAPE = (4, 32, 4, 4096, 128)
 # the first designs' times at these shapes, printed for comparison only
 # (constants, not measured here; PERF.md §6, the kernel table: the first
@@ -747,7 +771,8 @@ def phase_attention_vs_plain(torch, fa, da):
     import torch.nn.functional as F
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE):
+        for shape in (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE,
+                      FLASH_HYBRID_SHAPE):
             rows[("flash", dtype, shape)] = _flash_case(torch, fa, F, dtype,
                                                         *shape)
             torch.cuda.empty_cache()
@@ -893,11 +918,59 @@ def decode_profile(torch, mods, res, steps=8):
               for name, us in by_name.most_common(5)))
 
 
+@contextlib.contextmanager
+def _flash_through(fa, fn):
+    """Within the block, the model's flash calls go through ``fn(flash, q,
+    k, v, causal, window)``, ``flash`` being the wrapper it replaced."""
+    flash = fa.flash_attention
+    fa.flash_attention = (lambda q, k, v, *, causal=True, window=0:
+                          fn(flash, q, k, v, causal, window))
+    try:
+        yield
+    finally:
+        fa.flash_attention = flash
+
+
+def _recording(fa, calls):
+    """Each call's inputs and output, to hold it against the plain version
+    on its own inputs afterwards."""
+    def rec(flash, q, k, v, causal, window):
+        out = flash(q, k, v, causal=causal, window=window)
+        calls.append((q, k, v, causal, window, out))
+        return out
+    return _flash_through(fa, rec)
+
+
+def _no_causal(fa):
+    """Planted fault: flash with the causal mask dropped."""
+    return _flash_through(fa, lambda flash, q, k, v, causal, window: flash(
+        q, k, v, causal=False, window=window))
+
+
+def _score_batch(torch, mods, vocab, seq, device):
+    """The two users' token streams of the yi-6b phase (the seeds of
+    ``examples/serve_personalized.py``)."""
+    import numpy as np
+    streams = np.stack([mods.synthetic_lm_corpus(seq + 1, vocab=vocab,
+                                                 seed=s) for s in (10, 11)])
+    toks = torch.from_numpy(streams).to(device)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def _timed_loss(torch, model, params, batch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = model.loss(params, batch)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return float(loss), (time.perf_counter() - t0) * 1e3
+
+
 def phase_score(torch, fa, da, mods, *, reduce=False, device="cuda"):
     """The flash kernel's path: ``loss`` of yi-6b under
     ``attn_impl="pallas"`` on two users' 4,096-token streams (the seeds of
     ``examples/serve_personalized.py``), against ``attn_impl="xla"``."""
-    import numpy as np
     cfg = mods.get_config("yi_6b")
     seq = 4096
     if reduce:
@@ -905,59 +978,31 @@ def phase_score(torch, fa, da, mods, *, reduce=False, device="cuda"):
     model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
     model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
     params = model_p.init(torch.Generator(device=device).manual_seed(0))
-    streams = np.stack([mods.synthetic_lm_corpus(seq + 1,
-                                                 vocab=cfg.vocab_size,
-                                                 seed=s) for s in (10, 11)])
-    toks = torch.from_numpy(streams).to(device)
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
     # each flash call on the path, kept to hold it against the plain
     # version on its own inputs afterwards
     calls = []
-    flash = fa.flash_attention
-
-    def recording(q, k, v, *, causal=True, window=0):
-        out = flash(q, k, v, causal=causal, window=window)
-        calls.append((q, k, v, causal, window, out))
-        return out
-
-    fa.flash_attention = recording
-    try:
-        with torch.inference_mode():
-            fa.LAUNCHES = da.LAUNCHES = 0
-            sync()
-            t0 = time.perf_counter()
-            loss_p, _ = model_p.loss(params, batch)
-            sync()
-            t_p = time.perf_counter() - t0
-            launches = {"flash": fa.LAUNCHES, "decode": da.LAUNCHES}
-    finally:
-        fa.flash_attention = flash
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        loss_x, _ = model_x.loss(params, batch)
-        sync()
-        t_x = time.perf_counter() - t0
+        with _recording(fa, calls):
+            fa.LAUNCHES = da.LAUNCHES = 0
+            loss_p, t_p = _timed_loss(torch, model_p, params, batch, device)
+            launches = {"flash": fa.LAUNCHES, "decode": da.LAUNCHES}
+        loss_x, t_x = _timed_loss(torch, model_x, params, batch, device)
         layer_rel = _hold_path_calls(torch, fa, calls)
         del calls
         logits_x = model_x.predict(params, batch)
         logit_rel = _logit_row_rel(model_p.predict(params, batch), logits_x)
         # planted fault: flash with the causal mask dropped on every layer
-        fa.flash_attention = (lambda q, k, v, *, causal=True, window=0:
-                              flash(q, k, v, causal=False, window=window))
-        try:
+        with _no_causal(fa):
             logits_f = model_p.predict(params, batch)
-        finally:
-            fa.flash_attention = flash
         fault_rel = _logit_row_rel(logits_f, logits_x)
         loss_f = float(mods.layers.cross_entropy(logits_f, batch["targets"]))
         del logits_f, logits_x
-    loss_p, loss_x = float(loss_p), float(loss_x)
     rel = abs(loss_p - loss_x) / abs(loss_x)
     rel_f = abs(loss_f - loss_x) / abs(loss_x)
     print(f"[score] {cfg.name} loss on 2 x {seq} tokens: pallas "
-          f"{loss_p:.6f} ({t_p * 1e3:.1f} ms, first call), xla "
-          f"{loss_x:.6f} ({t_x * 1e3:.1f} ms); rel diff {rel:.2e} (rtol "
+          f"{loss_p:.6f} ({t_p:.1f} ms, first call), xla "
+          f"{loss_x:.6f} ({t_x:.1f} ms); rel diff {rel:.2e} (rtol "
           f"{SCORE_LOSS_RTOL:.0e}); launches {launches}")
     print(f"[score] each flash call on the path vs plain: max row rel "
           f"{layer_rel:.3e} (limit {BF16_ROW_RTOL['flash']:.0e}); logits, "
@@ -984,15 +1029,18 @@ def phase_score(torch, fa, da, mods, *, reduce=False, device="cuda"):
 
 def _hold_path_calls(torch, fa, calls):
     """Each recorded flash call against the plain version in f32 on its
-    own inputs (model layout [B, L, H, D]); the largest row rel error."""
+    own inputs (model layout [B, L, H, D]), one batch row at a time; the
+    largest row rel error."""
     worst = 0.0
     for i, (q, k, v, causal, window, out) in enumerate(calls):
-        want = fa.attention_plain(*(t.float().transpose(1, 2)
-                                    for t in (q, k, v)),
-                                  causal=causal, window=window)
-        _, rel = hold(torch, "flash", out.transpose(1, 2), want,
-                      f"flash call {i} on the scoring path vs plain")
-        worst = max(worst, rel)
+        for r in range(q.shape[0]):
+            want = fa.attention_plain(*(t[r:r + 1].float().transpose(1, 2)
+                                        for t in (q, k, v)),
+                                      causal=causal, window=window)
+            _, rel = hold(torch, "flash", out[r:r + 1].transpose(1, 2), want,
+                          f"flash call {i} on the scoring path vs plain")
+            worst = max(worst, rel)
+            del want
     check(len(calls) > 0, "no flash call on the scoring path")
     return worst
 
@@ -1312,7 +1360,6 @@ def phase_score_mamba(torch, ssd, mods, *, reduce=False, device="cuda"):
     end to end and every layer's output on the same input (teacher
     forcing); every token's logits are held end to end on an f32 copy of
     the params, where the same perturbation moves them by ~3e-3."""
-    import numpy as np
     cfg = mods.get_config("mamba2_370m")
     seq = 4096
     if reduce:
@@ -1320,11 +1367,7 @@ def phase_score_mamba(torch, ssd, mods, *, reduce=False, device="cuda"):
     model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
     model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
     params = model_p.init(torch.Generator(device=device).manual_seed(0))
-    streams = np.stack([mods.synthetic_lm_corpus(seq + 1,
-                                                 vocab=cfg.vocab_size,
-                                                 seed=s) for s in (10, 11)])
-    toks = torch.from_numpy(streams).to(device)
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     chunk = ssd.ssd_chunk
     held = []
@@ -2080,6 +2123,306 @@ def phase_mobile_edge(torch, agg, mods, smi, *, device="cuda", reduce=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 7: RecurrentGemma-2B (RG-LRU + local attention; the flash kernel at
+# head dim 256) scored and served, and the dense remainder of the zoo
+# ---------------------------------------------------------------------------
+
+# Scoring recurrentgemma-2b, pallas against xla, on the same params: the
+# loss (mean over 8,192 tokens) and every token's logits in bf16, at the
+# yi-6b phase's bounds (SCORE_LOSS_RTOL, SCORE_LOGIT_ROW_RTOL).  Unlike
+# mamba2's, this stack is not chaotic in bf16 at random init: each RG-LRU
+# scan's output x (1 + 1e-6 N(0, 1)) moves the bf16 logits by 3.7e-2 and
+# the kernel by 3.2e-2, on an NVIDIA H100 80GB HBM3 at 700 W.  On an f32
+# copy of the params that perturbation reads 1.5e-5 and the kernel (the f32
+# route at D 256) 5.5e-6, held at 1e-4.  Serving: the logits each token was
+# chosen from against a teacher-forced forward over prompt + generated
+# tokens, row by row, at the reference's own 5e-2
+# (tests/test_decode_consistency.py; 4.1e-2 on that card: the RG-LRU state
+# is stored in bf16 between decode steps, as in the reference).
+HYBRID_F32_LOGIT_ROW_RTOL = 1e-4
+SERVE_LOGIT_ROW_RTOL = 5e-2
+# The same check served in f32 (``serve --dtype float32``): the state is
+# kept in f32 between steps, so only f32 rounding separates decode from
+# the teacher-forced forward.
+HYBRID_F32_SERVE_ROW_RTOL = 1e-4
+DENSE_REMAINDER = ("starcoder2_15b", "nemotron4_15b", "deepseek_67b")
+DENSE_REMAINDER_LAYERS = 2
+
+
+def phase_score_hybrid(torch, fa, mods, *, reduce=False, device="cuda"):
+    """The flash kernel's path at head dim 256: ``loss`` of
+    recurrentgemma-2b (full width and depth, bf16) under
+    ``attn_impl="pallas"`` on the two 4,096-token streams, one flash launch
+    per attention block (8), each held against the plain version on its
+    own inputs, against ``attn_impl="xla"`` on the same params: losses and
+    every token's logits.  Measured beside them, not held: the xla path
+    with each RG-LRU scan's f32 output x (1 + 1e-6 N(0, 1)) against
+    itself (how far bf16 roundings alone move the logits), and the same on
+    an f32 copy of the params, where pallas against xla is held too."""
+    cfg = mods.get_config("recurrentgemma_2b")
+    seq = 4096
+    if reduce:
+        cfg, seq = dataclasses.replace(cfg.reduced(), num_layers=8), 96
+    model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model_p.init(torch.Generator(device=device).manual_seed(0))
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    scan = mods.hybrid.rglru_scan
+
+    def perturbed_scan(*args, **kw):
+        h, last = scan(*args, **kw)
+        return h * (1 + 1e-6 * torch.randn(h.shape, generator=gen,
+                                            device=h.device)), last
+
+    def noise_logits(model, p):
+        mods.hybrid.rglru_scan = perturbed_scan
+        try:
+            return model.predict(p, batch)
+        finally:
+            mods.hybrid.rglru_scan = scan
+
+    calls = []
+    with torch.inference_mode():
+        with _recording(fa, calls):
+            fa.LAUNCHES = 0
+            loss_p = float(model_p.loss(params, batch)[0])
+            launches = fa.LAUNCHES
+        loss_p2, t_p = _timed_loss(torch, model_p, params, batch, device)
+        loss_x, t_x = _timed_loss(torch, model_x, params, batch, device)
+        call_rel = _hold_path_calls(torch, fa, calls)
+        shapes = sorted({(tuple(c[0].shape), tuple(c[1].shape), c[3], c[4])
+                         for c in calls})
+        n_calls = len(calls)
+        del calls
+        logits_x = model_x.predict(params, batch)
+        bf16_rel = _logit_row_rel(model_p.predict(params, batch), logits_x)
+        bf16_noise = _logit_row_rel(noise_logits(model_x, params), logits_x)
+        with _no_causal(fa):
+            logits_f = model_p.predict(params, batch)
+        fault_rel = _logit_row_rel(logits_f, logits_x)
+        del logits_f, logits_x
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # an f32 copy of the params: pallas (the f32 route at D 256) vs xla
+        p32 = mods.tree_map(lambda t: t.float(), params)
+        m32_p, m32_x = (mods.build_model(dataclasses.replace(
+            cfg, dtype="float32", attn_impl=impl)) for impl in ("pallas",
+                                                                "xla"))
+        logits_x = m32_x.predict(p32, batch)
+        f32_rel = _logit_row_rel(m32_p.predict(p32, batch), logits_x)
+        f32_noise = _logit_row_rel(noise_logits(m32_x, p32), logits_x)
+        with _no_causal(fa):
+            f32_fault = _logit_row_rel(m32_p.predict(p32, batch), logits_x)
+        del logits_x, p32
+    rel = abs(loss_p - loss_x) / abs(loss_x)
+    print(f"[score] {cfg.name} loss on 2 x {seq} tokens, bf16: pallas "
+          f"{loss_p:.6f} ({t_p:.1f} ms, second call), xla {loss_x:.6f} "
+          f"({t_x:.1f} ms); rel diff {rel:.2e} (rtol {SCORE_LOSS_RTOL:.0e}); "
+          f"flash launches {launches} at {shapes}")
+    print(f"[score] each flash call on the path vs plain: max row rel "
+          f"{call_rel:.3e} over {n_calls} calls (limit "
+          f"{BF16_ROW_RTOL['flash']:.0e}); bf16 logits, pallas vs xla: max "
+          f"token row rel {bf16_rel:.3e} (limit {SCORE_LOGIT_ROW_RTOL:.0e})")
+    print(f"[score] f32 copy of the params, pallas vs xla: max token row "
+          f"rel {f32_rel:.3e} (limit {HYBRID_F32_LOGIT_ROW_RTOL:.0e}); not "
+          f"held to a limit: the xla path with each RG-LRU scan's output x "
+          f"(1 + 1e-6 N(0, 1)) against itself: bf16 {bf16_noise:.3e}, f32 "
+          f"{f32_noise:.3e}")
+    print(f"[control] hybrid score, planted fault 'causal mask dropped': "
+          f"bf16 logits max token row rel {fault_rel:.3e}, f32 "
+          f"{f32_fault:.3e}")
+    check(loss_p2 == loss_p, "the pallas loss changed between calls")
+    check(math.isfinite(loss_p) and rel <= SCORE_LOSS_RTOL,
+          f"pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+    check(math.isfinite(bf16_rel) and bf16_rel <= SCORE_LOGIT_ROW_RTOL,
+          f"pallas logits vs xla: max token row rel {bf16_rel:.3e}")
+    check(math.isfinite(f32_rel) and f32_rel <= HYBRID_F32_LOGIT_ROW_RTOL,
+          f"f32 logits, pallas vs xla: max token row rel {f32_rel:.3e}")
+    check(fault_rel > SCORE_LOGIT_ROW_RTOL
+          and f32_fault > HYBRID_F32_LOGIT_ROW_RTOL,
+          f"the planted fault passes a logits check ({fault_rel:.3e}, "
+          f"{f32_fault:.3e})")
+    check(n_calls == model_p.n_groups, f"{n_calls} flash calls on the "
+          f"scoring path, not one per attention block ({model_p.n_groups})")
+    if device == "cuda":
+        check(launches == model_p.n_groups, f"the scoring forward launched "
+              f"flash {launches} times, not {model_p.n_groups}")
+        print(f"[score] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return dict(launches=launches, loss_ms=t_p, xla_ms=t_x,
+                call_rel=call_rel, logit_rel=bf16_rel)
+
+
+@contextlib.contextmanager
+def _patched(obj, name, make):
+    """Within the block, ``obj.name`` is ``make(the original)``."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def _conv_tail_late(mods):
+    """Planted fault: a decode step leaves the recurrent blocks' conv tail
+    where it was (it ends one input early, and the window never moves)."""
+    def make(rec_apply):
+        def late(self, pl, x, *, conv_state=None, h_state=None,
+                 decode=False):
+            out, new_conv, h = rec_apply(self, pl, x, conv_state=conv_state,
+                                         h_state=h_state, decode=decode)
+            return out, (conv_state if decode else new_conv), h
+        return late
+    return _patched(mods.hybrid.RecurrentGemmaLM, "_rec_apply", make)
+
+
+def _window_short(mods):
+    """Planted fault: a decode step's local attention sees one key fewer
+    than the window (the ring's oldest slot is masked)."""
+    def make(attn_apply):
+        def short(self, pl, x, positions, cache, window):
+            decode = cache is not None and x.shape[1] == 1
+            return attn_apply(self, pl, x, positions, cache,
+                              window - 1 if decode else window)
+        return short
+    return _patched(mods.hybrid.RecurrentGemmaLM, "_attn_apply", make)
+
+
+def _served_vs_forced(torch, mods, argv):
+    """``serve.run(argv)``, and the logits each token was chosen from
+    against a teacher-forced ``forward`` over prompt + generated tokens:
+    (result, max token row rel, the same with the logits one step late)."""
+    res = mods.serve.run(argv)
+    lp = res.prompts.shape[1]
+    with torch.inference_mode():
+        toks = torch.cat([res.prompts, res.tokens[:, :-1]], dim=1)
+        want = mods.build_model(res.cfg).forward(res.params, toks)[0]
+        want = want[:, lp - 1:]
+    rel = float(_row_rel(res.logits, want).max())
+    shifted = float(_row_rel(res.logits[:, 1:], want[:, :-1]).max())
+    return res, rel, shifted
+
+
+def phase_serve_hybrid(torch, mods, *, reduce=False, device="cuda"):
+    """Full-width recurrentgemma-2b through the serve entry point (batch
+    4, prompt 2,048, 32 tokens, cache 4,096 of which the ring keeps the
+    window, 2,048); the logits each token was chosen from against a
+    teacher-forced forward over prompt + generated tokens: in bf16 at the
+    reference's 5e-2, and served in f32 (``--dtype float32``, the same
+    seed's params unrounded) at f32 rounding, where a conv tail that does
+    not advance and a window one key short must fail."""
+    argv = ["--arch", "recurrentgemma_2b", "--batch", "4", "--device", device]
+    argv += (["--prompt-len", "80", "--gen", "6", "--cache-len", "128"]
+             if reduce else ["--full", "--prompt-len", "2048", "--gen", "32",
+                             "--cache-len", "4096"])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, rel, shifted = _served_vs_forced(torch, mods, argv)
+    cfg, lp, n_gen = res.cfg, res.prompts.shape[1], res.tokens.shape[1]
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "served tokens out of the vocabulary")
+    ring = res.cache["attn"]["pos"]
+    window = cfg.hybrid.attention_window
+    check(ring.shape[-1] == min(int(argv[-1]), window) and
+          int(ring.max()) == lp + n_gen - 2,
+          f"ring of {ring.shape[-1]} slots holds up to {int(ring.max())}")
+    prefill_ms, decode_ms, ring_slots = res.prefill_ms, res.decode_ms, \
+        ring.shape[-1]
+    del res
+    with _conv_tail_late(mods):
+        bf16_fault = _served_vs_forced(torch, mods, argv)[1]
+    f32 = argv + ["--dtype", "float32"]
+    rel32 = _served_vs_forced(torch, mods, f32)[1]
+    with _conv_tail_late(mods):
+        f32_fault = _served_vs_forced(torch, mods, f32)[1]
+    with _window_short(mods):
+        f32_window = _served_vs_forced(torch, mods, f32)[1]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[serve] {cfg.name}: prefill {prefill_ms:.1f} ms, decode "
+          f"{decode_ms:.2f} ms/token, peak memory {peak:.1f} GiB; ring "
+          f"of {ring_slots} slots; served logits vs the teacher-forced "
+          f"forward, max token row rel: bf16 {rel:.3e} (limit "
+          f"{SERVE_LOGIT_ROW_RTOL:.0e}), served in f32 {rel32:.3e} (limit "
+          f"{HYBRID_F32_SERVE_ROW_RTOL:.0e})")
+    print(f"[control] hybrid serve, planted fault 'logits one step late': "
+          f"bf16 {shifted:.3e}; 'conv tail not advanced': f32 "
+          f"{f32_fault:.3e}, bf16 {bf16_fault:.3e} (not held); 'window one "
+          f"key short': f32 {f32_window:.3e}")
+    check(math.isfinite(rel) and rel <= SERVE_LOGIT_ROW_RTOL,
+          f"served logits vs the teacher-forced forward: {rel:.3e}")
+    check(math.isfinite(rel32) and rel32 <= HYBRID_F32_SERVE_ROW_RTOL,
+          f"f32 served logits vs the teacher-forced forward: {rel32:.3e}")
+    check(shifted > SERVE_LOGIT_ROW_RTOL, "the check cannot see logits one "
+          "step late")
+    check(f32_fault > HYBRID_F32_SERVE_ROW_RTOL, "the f32 check cannot see "
+          "a conv tail that does not advance")
+    check(f32_window > HYBRID_F32_SERVE_ROW_RTOL, "the f32 check cannot see "
+          "a window one key short")
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gib=peak,
+                logit_rel=rel, f32_logit_rel=rel32)
+
+
+def phase_dense_remainder(torch, fa, mods, *, reduce=False, device="cuda"):
+    """starcoder2-15b (gelu), nemotron-4-15b (squared ReLU) and
+    deepseek-67b (silu) at full width, depth cut to 2 layers (deepseek-67b
+    is 134 GB of bf16 whole), scored on the two streams: pallas vs xla
+    (loss, every token's logits), 2 flash launches at D 128 each, each
+    held against the plain version on its own inputs."""
+    out = {}
+    for arch in DENSE_REMAINDER:
+        cfg = mods.get_config(arch)
+        seq = 4096
+        if reduce:
+            cfg, seq = cfg.reduced(), 96
+        cfg = dataclasses.replace(cfg, num_layers=DENSE_REMAINDER_LAYERS)
+        model_p = mods.build_model(dataclasses.replace(cfg,
+                                                       attn_impl="pallas"))
+        model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+        params = model_p.init(torch.Generator(device=device).manual_seed(0))
+        batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
+        calls = []
+        with torch.inference_mode():
+            with _recording(fa, calls):
+                fa.LAUNCHES = 0
+                loss_p = float(model_p.loss(params, batch)[0])
+                launches = fa.LAUNCHES
+            _, t_p = _timed_loss(torch, model_p, params, batch, device)
+            loss_x, t_x = _timed_loss(torch, model_x, params, batch, device)
+            call_rel = _hold_path_calls(torch, fa, calls)
+            d = calls[0][0].shape[-1]
+            del calls
+            logit_rel = _logit_row_rel(model_p.predict(params, batch),
+                                       model_x.predict(params, batch))
+        del params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        rel = abs(loss_p - loss_x) / abs(loss_x)
+        print(f"[score] {cfg.name} ({cfg.activation}), {cfg.num_layers} of "
+              f"{mods.get_config(arch).num_layers} layers: loss pallas "
+              f"{loss_p:.6f} ({t_p:.1f} ms), xla {loss_x:.6f} ({t_x:.1f} "
+              f"ms), rel diff {rel:.2e} (rtol {SCORE_LOSS_RTOL:.0e}); flash "
+              f"launches {launches} at D {d}, each vs plain max row rel "
+              f"{call_rel:.3e}; logits max token row rel {logit_rel:.3e} "
+              f"(limit {SCORE_LOGIT_ROW_RTOL:.0e})")
+        check(math.isfinite(loss_p) and rel <= SCORE_LOSS_RTOL,
+              f"{arch}: pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+        check(math.isfinite(logit_rel) and logit_rel <= SCORE_LOGIT_ROW_RTOL,
+              f"{arch}: pallas logits vs xla: max row rel {logit_rel:.3e}")
+        if device == "cuda":
+            check(launches == cfg.num_layers, f"{arch}: {launches} flash "
+                  f"launches, not one per layer ({cfg.num_layers})")
+        out[arch] = dict(launches=launches, head_dim=d, loss_ms=t_p,
+                         xla_ms=t_x, loss_rel=rel)
+    return out
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import (ExperimentConfig, FLConfig,
@@ -2095,7 +2438,7 @@ def import_port():
     from repro_torch.kernels.stale_aggregate import masked_aggregate_tree
     from repro_torch.launch import serve, train, train_e2e
     from repro_torch.models import build_model
-    from repro_torch.models import layers, ssm
+    from repro_torch.models import hybrid, layers, ssm
     from repro_torch.obs import Tracer, validate_rows
     from repro_torch.optim import clip_by_global_norm, make_optimizer
     from repro_torch.optim.optimizers import adam_update_plain
@@ -2165,6 +2508,14 @@ def main():
     torch.cuda.empty_cache()
     timed("serve mamba2", phase_serve_mamba, torch, ssd, mods)
     torch.cuda.empty_cache()
+    hybrid_score = timed("score recurrentgemma-2b", phase_score_hybrid, torch,
+                         fa, mods)
+    torch.cuda.empty_cache()
+    timed("serve recurrentgemma-2b", phase_serve_hybrid, torch, mods)
+    torch.cuda.empty_cache()
+    dense = timed("dense remainder (2 layers each)", phase_dense_remainder,
+                  torch, fa, mods)
+    torch.cuda.empty_cache()
     adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
                               agg, mods)
     check("jax" not in sys.modules and not any(
@@ -2202,8 +2553,21 @@ def main():
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:75",
          "launches": score_launches["flash"],
+         "path": "yi-6b scoring forward, one launch per layer",
          "shape": list(FLASH_SCORE_SHAPE), "dtype": "bfloat16",
-         **attn[("flash", torch.bfloat16, FLASH_SCORE_SHAPE)]},
+         **attn[("flash", torch.bfloat16, FLASH_SCORE_SHAPE)],
+         "hybrid": {
+             "path": "recurrentgemma-2b scoring forward, one launch per "
+                     "attention block",
+             "launches": hybrid_score["launches"],
+             "shape": list(FLASH_HYBRID_SHAPE), "dtype": "bfloat16",
+             "ptxas": {k: v for k, v in ptxas["flash_attention.cu"].items()
+                       if "256>" in k},
+             **attn[("flash", torch.bfloat16, FLASH_HYBRID_SHAPE)],
+             "float32": attn[("flash", torch.float32, FLASH_HYBRID_SHAPE)]},
+         "dense_remainder": {
+             arch: {"launches": r["launches"], "head_dim": r["head_dim"]}
+             for arch, r in dense.items()}},
         {"name": "decode_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:65",

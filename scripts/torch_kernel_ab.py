@@ -22,7 +22,11 @@ Phases (``chip_smoke.py``'s function in brackets):
   versions (``phase_attention_vs_plain``, ``phase_ssd_vs_plain``,
   ``phase_adam_vs_plain``);
 * ``score``, ``score_mamba``: yi-6b and mamba2-370m scored at full width
-  (``phase_score``, ``phase_score_mamba``).
+  (``phase_score``, ``phase_score_mamba``);
+* ``score_hybrid``, ``serve_hybrid``, ``dense_remainder``: recurrentgemma-2b
+  scored and served at full width, and the three dense configs at full
+  width and 2 layers (``phase_score_hybrid``, ``phase_serve_hybrid``,
+  ``phase_dense_remainder``; checkouts from before the hybrid have none).
 
 Needs one CUDA card and the CUDA toolkit.  Exits 1 if a phase failed in any
 checkout.
@@ -33,7 +37,8 @@ import os
 import subprocess
 import sys
 
-PHASES = ("eq8", "attention", "ssd", "adam", "score", "score_mamba")
+PHASES = ("eq8", "attention", "ssd", "adam", "score", "score_mamba",
+          "score_hybrid", "serve_hybrid", "dense_remainder")
 EQ8_DEFAULT = ["79510:128", "1000003:16"]
 
 
@@ -68,6 +73,11 @@ def run_phases(root, phases, eq8_shapes):
         "score": ([fa, da], lambda: cs.phase_score(torch, fa, da, mods)),
         "score_mamba": ([ssd],
                         lambda: cs.phase_score_mamba(torch, ssd, mods)),
+        "score_hybrid": ([fa],
+                         lambda: cs.phase_score_hybrid(torch, fa, mods)),
+        "serve_hybrid": ([], lambda: cs.phase_serve_hybrid(torch, mods)),
+        "dense_remainder": ([fa], lambda: cs.phase_dense_remainder(
+            torch, fa, mods)),
     }
     cs.phase_environment(torch)
     kernels = []

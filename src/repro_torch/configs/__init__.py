@@ -1,14 +1,17 @@
-"""Config registry of the port: the paper's own models, ``yi_6b`` and
-``mamba2_370m``.
+"""Config registry of the port: the paper's own models and the ported
+part of the LM zoo.
 
-``yi_6b`` and ``mamba2_370m`` are literal copies of the JAX package's
-``configs/yi_6b.py`` and ``configs/mamba2_370m.py``.  The rest of the LM
-zoo (``starcoder2_15b`` … ``recurrentgemma_2b``) is not ported yet; asking
-for one raises ``NotImplementedError`` (ROADMAP queue 1, model zoo).
+The LM configs are literal copies of the JAX package's
+``configs/<arch>.py`` files (``yi_6b``, ``mamba2_370m``, ``starcoder2_15b``,
+``nemotron4_15b``, ``deepseek_67b``, ``recurrentgemma_2b``).  The rest of
+the zoo (``mixtral_8x22b``, ``deepseek_v2_236b``, ``llama32_vision_11b``,
+``musicgen_large``) is not ported yet; asking for one raises
+``NotImplementedError`` (ROADMAP queue 1, model zoo).  The reference's
+hyphenated aliases (``nemotron-4-15b``, ...) name the same configs.
 """
 from __future__ import annotations
 
-from repro_torch.config import ModelConfig, SSMConfig
+from repro_torch.config import HybridConfig, ModelConfig, SSMConfig
 
 CONFIGS = {
     # 2-layer DNN with hidden size 100 for MNIST (Sec. VI-A)
@@ -59,15 +62,89 @@ CONFIGS = {
                       conv_width=4),
         source="arXiv:2405.21060",
     ),
+    # StarCoder2-15B — dense, GQA (48H/4KV), RoPE. [arXiv:2402.19173]
+    "starcoder2_15b": ModelConfig(
+        name="starcoder2-15b",
+        family="dense",
+        num_layers=40,
+        d_model=6144,
+        num_heads=48,
+        num_kv_heads=4,
+        d_ff=24576,
+        vocab_size=49152,
+        max_seq_len=16384,
+        attention="gqa",
+        rope_theta=1e5,
+        activation="gelu",
+        long_context_window=4096,   # sliding-window variant for long_500k
+        source="arXiv:2402.19173",
+    ),
+    # Nemotron-4-15B — dense, GQA (48H/8KV), squared-ReLU MLP.
+    # [arXiv:2402.16819]
+    "nemotron4_15b": ModelConfig(
+        name="nemotron-4-15b",
+        family="dense",
+        num_layers=32,
+        d_model=6144,
+        num_heads=48,
+        num_kv_heads=8,
+        d_ff=24576,
+        vocab_size=256000,
+        max_seq_len=4096,
+        attention="gqa",
+        rope_theta=1e4,
+        activation="sq_relu",       # squared-ReLU, non-gated MLP
+        long_context_window=4096,
+        source="arXiv:2402.16819",
+    ),
+    # DeepSeek-67B — dense llama-arch, GQA (64H/8KV). [arXiv:2401.02954]
+    "deepseek_67b": ModelConfig(
+        name="deepseek-67b",
+        family="dense",
+        num_layers=95,
+        d_model=8192,
+        num_heads=64,
+        num_kv_heads=8,
+        d_ff=22016,
+        vocab_size=102400,
+        max_seq_len=4096,
+        attention="gqa",
+        rope_theta=1e4,
+        activation="silu",
+        long_context_window=4096,
+        source="arXiv:2401.02954",
+    ),
+    # RecurrentGemma-2B — RG-LRU + local attention (2 recurrent : 1 attn).
+    # [arXiv:2402.19427]
+    "recurrentgemma_2b": ModelConfig(
+        name="recurrentgemma-2b",
+        family="hybrid",
+        num_layers=26,
+        d_model=2560,
+        num_heads=10,
+        num_kv_heads=1,             # MQA for the local-attention blocks
+        d_ff=7680,
+        vocab_size=256000,
+        max_seq_len=1048576,        # unbounded in principle (fixed-size state)
+        attention="gqa",
+        rope_theta=1e4,
+        activation="gelu",
+        hybrid=HybridConfig(lru_width=2560, attention_window=2048,
+                            pattern=("rglru", "rglru", "attn")),
+        source="arXiv:2402.19427",
+    ),
 }
 
-_LM_ZOO = ("starcoder2_15b", "mixtral_8x22b", "deepseek_67b", "musicgen_large",
-           "llama32_vision_11b", "deepseek_v2_236b", "nemotron4_15b",
-           "recurrentgemma_2b")
+_LM_ZOO = ("mixtral_8x22b", "musicgen_large", "llama32_vision_11b",
+           "deepseek_v2_236b")
+
+# the reference's hyphenated ids that the rule below does not map
+ALIASES = {"nemotron-4-15b": "nemotron4_15b",
+           "llama-3.2-vision-11b": "llama32_vision_11b"}
 
 
 def get_config(arch: str) -> ModelConfig:
-    name = arch.replace("-", "_").replace(".", "")
+    name = ALIASES.get(arch, arch.replace("-", "_").replace(".", ""))
     if name in CONFIGS:
         return CONFIGS[name]
     if name in _LM_ZOO or arch in _LM_ZOO:

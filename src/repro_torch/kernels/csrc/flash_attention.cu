@@ -60,12 +60,19 @@
 //   - With a causal mask the q tiles launch heaviest first (grid z runs
 //     over q tiles in reverse, heads and batch in x and y), so the tail is
 //     short.
-// * bf16, D in {16, 32}: flash_bf16_kernel, the first design (mma.sync
-//   m16n8k16, 64-row tiles, synchronous loads), which the wgmma tiling
-//   does not replace at these widths.
-// * f32, any D: flash_f32_kernel, FMAs on the CUDA cores, so the f32 path
-//   matches a float32 reference to float32 rounding (23.4 ms at the
-//   scoring shape, against 26.5 ms for SDPA in f32).
+// * bf16, D in {16, 32, 256}: flash_bf16_kernel, the first design
+//   (mma.sync m16n8k16, 64-row tiles, synchronous loads), which the wgmma
+//   tiling does not replace at these widths.  D 256 is RecurrentGemma's
+//   local attention (MQA, Hq 10, window 2048).  There a warp's 16-row O
+//   accumulator alone is 128 f32 registers a thread, so Q is not held in
+//   registers: it stays in shared memory at every D, and each 16-column
+//   chunk's A fragment is read once per K tile and shared by the tile's 8
+//   key groups.  Shared memory is 3 x 64 x 264 x 2 = 101,376 B a CTA at
+//   D 256, two CTAs an SM.
+// * f32, D in {16, 32, 64, 128, 256}: flash_f32_kernel, FMAs on the CUDA
+//   cores, so the f32 path matches a float32 reference to float32
+//   rounding (23.4 ms at the scoring shape, against 26.5 ms for SDPA in
+//   f32); 217,088 B of shared memory a CTA at D 256.
 //
 // What the first bf16 design lost (4.28 ms at the scoring shape, against
 // 0.455 ms for F.scaled_dot_product_attention on an H100, PERF.md): every
@@ -274,7 +281,7 @@ flash_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D in {16, 32}: tensor cores through mma.sync m16n8k16
+// bfloat16, D in {16, 32, 256}: tensor cores through mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int kBf16Threads = 128;  // 4 warps x 16 q rows
@@ -304,6 +311,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the A fragment (16 x 16, row) of rows [0, 16) and columns [16 kc,
+// 16 kc + 16) of a row-major bf16 tile with row stride lds
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4],
+                                            const __nv_bfloat16* tile,
+                                            int lds, int kc, int g, int t) {
+  a[0] = ld_u32(tile + g * lds + kc * 16 + t * 2);
+  a[1] = ld_u32(tile + (g + 8) * lds + kc * 16 + t * 2);
+  a[2] = ld_u32(tile + g * lds + kc * 16 + 8 + t * 2);
+  a[3] = ld_u32(tile + (g + 8) * lds + kc * 16 + 8 + t * 2);
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const __nv_bfloat16* ptr) {
   const uint32_t addr =
@@ -315,8 +333,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// two CTAs an SM (shared memory allows it at every D); the hint also keeps
+// ptxas from spilling at D 16
 template <int D>
-__global__ void __launch_bounds__(kBf16Threads)
+__global__ void __launch_bounds__(kBf16Threads, 2)
 flash_bf16_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LDS = D + 8;          // padded rows: conflict-free fragments
@@ -344,16 +364,9 @@ flash_bf16_kernel(Params p) {
   load_rows<__nv_bfloat16, D>(Qs, LDS, q, p.sq.l, q0, p.L);
   __syncthreads();
 
-  // this warp's 16 q rows as A fragments, one per 16 columns of D
-  uint32_t qf[D / 16][4];
+  // this warp's 16 q rows: their A fragments are read from shared memory
+  // (which keeps Q for the whole walk) once per K tile and 16-column chunk
   const __nv_bfloat16* qw = Qs + warp * 16 * LDS;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    qf[kc][0] = ld_u32(qw + g * LDS + kc * 16 + t * 2);
-    qf[kc][1] = ld_u32(qw + (g + 8) * LDS + kc * 16 + t * 2);
-    qf[kc][2] = ld_u32(qw + g * LDS + kc * 16 + 8 + t * 2);
-    qf[kc][3] = ld_u32(qw + (g + 8) * LDS + kc * 16 + 8 + t * 2);
-  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -374,12 +387,16 @@ flash_bf16_kernel(Params p) {
     // g + 8*(e/2), key k0 + 8n + 2t + e%2
     float s[8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (n * 8 + g) * LDS + t * 2;
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a[4];
+      load_a_frag(a, qw, LDS, kc, g, t);
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        mma_bf16(s[n], qf[kc], ld_u32(kr + kc * 16), ld_u32(kr + kc * 16 + 8));
+      for (int n = 0; n < 8; ++n) {
+        const __nv_bfloat16* kr = Ks + (n * 8 + g) * LDS + kc * 16 + t * 2;
+        mma_bf16(s[n], a, ld_u32(kr), ld_u32(kr + 8));
+      }
     }
 
     float mx[2] = {kNegInf, kNegInf};
@@ -1147,8 +1164,9 @@ cudaError_t dispatch_mma(dim3 grid, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v, o: device pointers; element strides (batch, head, row) of each,
-// the head dim D contiguous.  route: 0 float32 on the CUDA cores (any D),
-// 1 bfloat16 through mma.sync (D 16 or 32), 2 bfloat16 through wgmma and
+// the head dim D contiguous.  route: 0 float32 on the CUDA cores (D 16, 32,
+// 64, 128 or 256), 1 bfloat16 through mma.sync (D 16, 32 or 256), 2
+// bfloat16 through wgmma and
 // TMA (D 64 or 128); any other pairing is refused, and so is a stride of 0
 // on a dim of size > 1 on route 2.  Returns a cudaError_t
 // (0 on success).
@@ -1181,10 +1199,16 @@ extern "C" int flash_attention_fwd(
       case 32: err = dispatch_f32<32>(grid, p, s); break;
       case 64: err = dispatch_f32<64>(grid, p, s); break;
       case 128: err = dispatch_f32<128>(grid, p, s); break;
+      case 256: err = dispatch_f32<256>(grid, p, s); break;
       default: break;
     }
-  } else if (route == 1 && (D == 16 || D == 32)) {
-    err = D == 16 ? dispatch_mma<16>(grid, p, s) : dispatch_mma<32>(grid, p, s);
+  } else if (route == 1) {
+    switch (D) {
+      case 16: err = dispatch_mma<16>(grid, p, s); break;
+      case 32: err = dispatch_mma<32>(grid, p, s); break;
+      case 256: err = dispatch_mma<256>(grid, p, s); break;
+      default: break;
+    }
   } else if (route == 2 && (D == 64 || D == 128)) {
     err = D == 64 ? launch_wgmma<64>(q, k, v, p, B, Hq, Hkv, s)
                   : launch_wgmma<128>(q, k, v, p, B, Hq, Hkv, s);
@@ -1200,8 +1224,10 @@ extern "C" int flash_attention_smem_bytes(int route, int D) {
     case 32: return f32_smem_bytes<32>();
     case 64: return f32_smem_bytes<64>();
     case 128: return f32_smem_bytes<128>();
+    case 256: return f32_smem_bytes<256>();
     case 1016: return bf16_smem_bytes<16>();
     case 1032: return bf16_smem_bytes<32>();
+    case 1256: return bf16_smem_bytes<256>();
     case 2064: return WgLayout<64>::kSmemBytes;
     case 2128: return WgLayout<128>::kSmemBytes;
     default: return 0;

@@ -9,8 +9,10 @@ the kernel a CUDA tensor launches, a fixed function of (dtype, D):
 
 * bf16, D 64 or 128 — ``wgmma`` on both products, K/V tiles through a TMA
   ring with mbarriers, a producer warpgroup and two consumer warpgroups;
-* bf16, D 16 or 32 — ``mma.sync`` m16n8k16, synchronous tile loads;
-* float32, any D — FMAs on the CUDA cores.
+* bf16, D 16, 32 or 256 — ``mma.sync`` m16n8k16, synchronous tile loads,
+  Q's fragments read from shared memory once per K tile (D 256 is
+  RecurrentGemma's local attention);
+* float32, any of ``HEAD_DIMS`` — FMAs on the CUDA cores.
 
 * ``attention_plain``     — the plain torch version, the counterpart of
   the reference's ``kernels/ref.py::attention_ref``: materialised scores,
@@ -36,7 +38,7 @@ import torch
 from repro_torch.kernels._build import CSRC, build_library
 
 SOURCE = CSRC / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 ROUTES = {"f32-fma": 0, "mma-sync": 1, "wgmma-tma": 2}   # the C entry's codes
 NO_BACKWARD = ("flash attention has no backward pass (neither has the "
                "reference kernel); it comes with the transformer's training "

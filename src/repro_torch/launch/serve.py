@@ -2,21 +2,30 @@
 model, on the card unless ``--device cpu`` is given.
 
 The port of the JAX package's ``launch/serve.py``, with the same CLI plus
-``--device``.  Weights are random, drawn from ``--seed``, and so are the
+``--device`` and ``--dtype`` (serve the config in another dtype, e.g.
+``float32`` to hold decode against a teacher-forced forward at f32
+rounding).  Weights are random, drawn from ``--seed``, and so are the
 prompts (one ``torch.Generator`` for both).  The PFL twist:
 ``--personalize`` adapts the served weights with one inner SGD step on the
 prompts (next-token targets) before serving, through ``core/perfed.adapt``
 — the deployment story of Per-FedAvg.
+
+Any ported LM family serves (``--arch`` yi_6b, mamba2_370m,
+recurrentgemma_2b, starcoder2_15b, ...): the model's own ``init_cache``,
+``prefill`` and ``decode_step`` carry the family's state.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --reduce \
       --batch 4 --prompt-len 32 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 \
       --prompt-len 2048 --gen 32 --cache-len 4096          # one H100
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \
+      --full --batch 4 --prompt-len 2048 --gen 32 --cache-len 4096
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 import types
@@ -41,6 +50,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--personalize", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                    help="params and activations (default: the config's)")
     return ap
 
 
@@ -51,13 +62,16 @@ def _sync(device: torch.device) -> None:
 
 def run(argv=None) -> types.SimpleNamespace:
     """Serve once and print what ``main`` prints; return the config,
-    params, prompts, final cache, generated tokens and timings for callers
-    that check them."""
+    params, prompts, final cache, generated tokens, the logits each token
+    was chosen from ([B, gen, V]) and timings for callers that check
+    them."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = cfg.reduced()
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if cfg.family == "audio":
         raise NotImplementedError("the audio family is not ported yet "
                                   "(ROADMAP queue 1, model zoo)")
@@ -82,12 +96,13 @@ def run(argv=None) -> types.SimpleNamespace:
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
-        out_tokens = [toks]
+        out_tokens, out_logits = [toks], [logits]
         t0 = time.perf_counter()
         for i in range(args.gen - 1):
             logits, cache = model.decode_step(params, cache, toks, lp + i)
             toks = torch.argmax(logits, dim=-1).to(torch.int32).reshape(b, 1)
             out_tokens.append(toks)
+            out_logits.append(logits)
         _sync(device)
         t_decode = time.perf_counter() - t0
 
@@ -100,7 +115,8 @@ def run(argv=None) -> types.SimpleNamespace:
     print("sample tokens:", gen_tokens[0].tolist()[:12])
     return types.SimpleNamespace(
         cfg=cfg, params=params, cache=cache, tokens=gen_tokens,
-        prompts=prompts, prefill_ms=t_prefill * 1e3, decode_ms=decode_ms)
+        logits=torch.cat(out_logits, dim=1), prompts=prompts,
+        prefill_ms=t_prefill * 1e3, decode_ms=decode_ms)
 
 
 def main(argv=None) -> int:

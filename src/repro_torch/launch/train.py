@@ -12,8 +12,9 @@ The port of the JAX package's ``launch/train.py``, with the same CLI plus
 
 ``--metrics-dir`` writes the fl mode's eval points to
 ``<dir>/metrics.jsonl`` through ``utils.metrics.MetricsLogger``, as the
-reference does.  ``--ckpt-dir`` raises ``NotImplementedError``: checkpoints
-are not ported yet (ROADMAP queue 1, checkpoints).
+reference does.  ``--ckpt-dir DIR`` saves the scale mode's final params to
+``DIR/ckpt_<steps>.npz`` (``checkpoint.save_checkpoint``, the reference's
+file format).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \
@@ -60,10 +61,6 @@ def run(argv=None):
     ``SimResult``, or the scale mode's (final state, last metrics), for
     callers that check them."""
     args = _parser().parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "yet (ROADMAP queue 1, checkpoints)")
-
     from repro_torch.config import (ExperimentConfig, apply_overrides,
                                     parse_cli_overrides)
     from repro_torch.configs import get_config
@@ -160,6 +157,10 @@ def run_scale(cfg, args, device):
             print(f"step {step:4d} loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({time.time() - t0:.1f}s)", flush=True)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import save_checkpoint
+        print("saved", save_checkpoint(args.ckpt_dir, state.params,
+                                       step=args.steps))
     return state, metrics
 
 

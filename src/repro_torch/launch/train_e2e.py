@@ -7,8 +7,8 @@ param Yi-family model; ``--model-scale 100m`` a ~100M-param variant.  The
 round loop is ``train_rounds``, which takes any model and config, so other
 callers drive other models (full-width mamba2-370m in ``chip_smoke.py``)
 through the same loop.  Batches are drawn with numpy from a seed per round.
-``--ckpt-dir`` raises: checkpoints are not ported yet (ROADMAP queue 1,
-checkpoints).
+``--ckpt-dir DIR`` saves the final params to ``DIR/ckpt_<rounds>.npz``
+(``checkpoint.save_checkpoint``, the reference's file format).
 
     PYTHONPATH=src python -m repro_torch.launch.train_e2e --rounds 60
     PYTHONPATH=src python -m repro_torch.launch.train_e2e --rounds 2 \
@@ -25,6 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import ExperimentConfig, FLConfig, TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.core import semi_sync
@@ -132,9 +133,6 @@ def main(argv=None) -> int:
     if args.fused_agg and args.server_opt != "sgd":
         ap.error("--fused-agg requires --server-opt sgd (the fused Eq.-8 "
                  "path is the plain β-SGD update)")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "yet (ROADMAP queue 1, checkpoints)")
     device = resolve_device(args.device)
 
     mcfg = model_cfg(args.model_scale)
@@ -155,10 +153,14 @@ def main(argv=None) -> int:
 
     pi = greedy_schedule(relative_frequencies(n, "equal"), args.participants,
                          args.rounds)
-    train_rounds(model, cfg, opt, state, pi=pi,
-                 corpora=cohort_corpora(n, mcfg.vocab_size),
-                 rounds=range(args.rounds), batch=args.batch, seq=args.seq,
-                 device=device, log_every=max(1, args.rounds // 10))
+    state, _ = train_rounds(model, cfg, opt, state, pi=pi,
+                            corpora=cohort_corpora(n, mcfg.vocab_size),
+                            rounds=range(args.rounds), batch=args.batch,
+                            seq=args.seq, device=device,
+                            log_every=max(1, args.rounds // 10))
+    if args.ckpt_dir:
+        print("saved", save_checkpoint(args.ckpt_dir, state.params,
+                                       step=args.rounds))
     return 0
 
 

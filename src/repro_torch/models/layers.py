@@ -22,6 +22,7 @@ zoo): ``TransformerLM`` and ``attention_apply`` raise on them.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -50,16 +51,23 @@ def normal(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device)
 
 
+def lead_indices(lead: Tuple[int, ...]):
+    """Every index of the leading axes ``lead`` in row-major order (one
+    ``...`` when there are none)."""
+    return itertools.product(*map(range, lead)) if lead else [...]
+
+
 def dense_init(gen, in_dim: int, out_dim: int, dtype, scale=None, *,
                device="cpu", lead: Tuple[int, ...] = ()) -> torch.Tensor:
     """``lead`` stacks independent draws along leading axes (the layer
-    axis); each ``[in, out]`` draw is made in float32 and cast, so no
-    float32 copy of a whole stack is ever held."""
+    axis, or the hybrid's (group, block) axes); each ``[in, out]`` draw is
+    made in float32 and cast, so no float32 copy of a whole stack is ever
+    held."""
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     out = torch.empty(lead + (in_dim, out_dim), dtype=dtype, device=device)
     if out.device.type == "meta":
         return out
-    for idx in (range(lead[0]) if lead else [...]):
+    for idx in lead_indices(lead):
         out[idx] = (normal(gen, (in_dim, out_dim), device) * scale).to(dtype)
     return out
 

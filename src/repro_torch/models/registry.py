@@ -1,12 +1,14 @@
 """Model family registry: ``ModelConfig.family`` → builder.
 
-The ``small`` family (the paper's own models), the ``dense`` transformer and
-the ``ssm`` family (Mamba-2) are ported; the other LM zoo families raise
-``NotImplementedError`` (ROADMAP queue 1, model zoo)."""
+The ``small`` family (the paper's own models), the ``dense`` transformer,
+the ``ssm`` family (Mamba-2) and the ``hybrid`` family (RecurrentGemma) are
+ported; the other LM zoo families raise ``NotImplementedError`` (ROADMAP
+queue 1, model zoo)."""
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import small
+from repro_torch.models.hybrid import RecurrentGemmaLM
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import TransformerLM
 
@@ -32,7 +34,7 @@ MODEL_FAMILIES = {
     "dense": TransformerLM,
     "moe": _not_ported,
     "ssm": Mamba2LM,
-    "hybrid": _not_ported,
+    "hybrid": RecurrentGemmaLM,
     "vlm": _not_ported,
     "audio": _not_ported,
     "small": _small,

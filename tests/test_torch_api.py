@@ -16,8 +16,6 @@ MISSING = {
                        "lint_text", "run_paths"],
     "repro.analysis.core": None,        # whole module: static analysis
     "repro.analysis.rules": None,
-    "repro.checkpoint": ["latest_checkpoint", "load_checkpoint",
-                         "save_checkpoint"],
     "repro.kernels.ops": None,          # the reference's jit wrappers
     "repro.utils.hypofallback": None,   # the reference's test support
 }

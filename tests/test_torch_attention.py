@@ -60,6 +60,23 @@ def test_flash_plain_matches_reference_kernel(b, hq, hkv, sl, d, blk, causal,
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_head_dim_256_windowed_matches_oracle(causal):
+    """RecurrentGemma's local attention: MQA at head dim 256 with a window
+    shorter than L (the card's mma.sync route at D 256 is held against
+    this plain version in ``tests/test_torch_card.py``)."""
+    q, k, v = _normal(256, (2, 4, 80, 256), (2, 1, 80, 256),
+                      (2, 1, 80, 256))
+    got = fa.flash_attention_bhld(*map(torch.from_numpy, (q, k, v)),
+                                  causal=causal, window=24)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    oracle = ref.attention_ref(jq, jk, jv, causal=causal, window=24)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32)
+    want = ref_flash(jq, jk, jv, causal=causal, window=24, block_q=32,
+                     block_k=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
 def test_flash_plain_bf16_matches_reference_kernel():
     q, k, v = (x.astype(ml_dtypes.bfloat16) for x in
                _normal(7, (1, 2, 64, 32), (1, 2, 64, 32), (1, 2, 64, 32)))
@@ -168,10 +185,10 @@ def test_decode_takes_the_model_cache_layout_without_a_copy():
 # ------------------------------------------------- the card kernels' plans --
 
 def test_flash_route_is_a_function_of_dtype_and_head_dim():
-    """bf16 at D 64 and 128 takes the wgmma + TMA kernel, bf16 at D 16 and
-    32 the mma.sync kernel, float32 the CUDA-core kernel."""
+    """bf16 at D 64 and 128 takes the wgmma + TMA kernel, bf16 at D 16, 32
+    and 256 the mma.sync kernel, float32 the CUDA-core kernel."""
     assert [fa.route(torch.bfloat16, d) for d in fa.HEAD_DIMS] == [
-        "mma-sync", "mma-sync", "wgmma-tma", "wgmma-tma"]
+        "mma-sync", "mma-sync", "wgmma-tma", "wgmma-tma", "mma-sync"]
     assert {fa.route(torch.float32, d) for d in fa.HEAD_DIMS} == {"f32-fma"}
     assert set(fa.ROUTES) == {"f32-fma", "mma-sync", "wgmma-tma"}
 

@@ -14,7 +14,8 @@ keys); bfloat16 outputs row by row, ||got - want|| / ||want|| over the head
 dim, as ``chip_smoke.py`` holds them (a single rounding of the output to
 bf16 stays under 2^-8; the flash kernel also rounds P to bf16 for its
 tensor-core product).  The flash cases cover both bf16 routes (wgmma + TMA
-at D 64 and 128, mma.sync at D 16 and 32) and the wgmma tiling's edges;
+at D 64 and 128, mma.sync at D 16, 32 and 256) and the wgmma tiling's
+edges;
 the decode cases the split-S plan's edges (empty chunks, ragged S, one
 chunk, two head chunks a kv head, a row with no valid slot).  The SSD
 chunk kernel's four outputs are each held relative to their own scale,
@@ -150,9 +151,18 @@ FLASH_CASES = [
     # D 16 and 32 stay on the mma.sync route
     (1, 4, 2, 130, 16, True, 0),
     (1, 8, 2, 150, 32, True, 40),
+    # D 256 (RecurrentGemma's local attention: MQA, Hq 10) on the mma.sync
+    # route with Q read from shared memory: ragged L, a window edge inside
+    # a tile, a window wider than L, non-causal
+    (1, 10, 1, 300, 256, True, 64),
+    (2, 10, 1, 1000, 256, True, 200),
+    (1, 4, 2, 129, 256, True, 0),
+    (1, 2, 1, 200, 256, False, 0),
+    (1, 10, 1, 4096, 256, True, 2048),
 ]
 
-ROUTE = {16: "mma-sync", 32: "mma-sync", 64: "wgmma-tma", 128: "wgmma-tma"}
+ROUTE = {16: "mma-sync", 32: "mma-sync", 64: "wgmma-tma", 128: "wgmma-tma",
+         256: "mma-sync"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

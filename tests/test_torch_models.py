@@ -5,6 +5,8 @@ Weights are drawn once from a seed, carried between the packages as numpy
 same numpy batch: logits and loss agree to atol 1e-5 (float32, different
 summation order).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -85,6 +87,15 @@ def test_numpy_tree_round_trip():
     again = to_numpy_tree(from_numpy_tree(flat, "cpu"))
     for a, b in zip(tree_leaves(again), tree_leaves(params)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_370m", "starcoder2_15b",
+                                  "nemotron4_15b", "deepseek_67b",
+                                  "recurrentgemma_2b"])
+def test_lm_configs_are_literal_copies(arch):
+    want = dataclasses.asdict(ref_get_config(arch))
+    assert dataclasses.asdict(get_config(arch)) == want
+    assert dataclasses.asdict(get_config(want["name"])) == want
 
 
 def test_unported_families_name_the_roadmap_queue():

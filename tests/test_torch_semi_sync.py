@@ -303,12 +303,17 @@ def test_train_step_matches_reference(perfed_step):
 def test_train_scale_mode_runs_reduced_on_cpu(tmp_path):
     state, metrics = train.run(["--mode", "scale", "--arch", "mamba2_370m",
                                 "--reduce", "--device", "cpu",
-                                "--steps", "2"])
+                                "--steps", "2",
+                                "--ckpt-dir", str(tmp_path / "ckpt")])
     assert int(state.step) == 2
     assert np.isfinite(float(metrics["loss"]))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, checkpoints"):
-        train.main(["--mode", "scale", "--ckpt-dir", "x", "--device", "cpu"])
+    # --ckpt-dir saves the final params, as the reference does
+    from repro_torch.checkpoint import latest_checkpoint, load_checkpoint
+    fname = latest_checkpoint(str(tmp_path / "ckpt"))
+    assert fname.endswith("ckpt_00000002.npz")
+    back = load_checkpoint(fname, like=state.params)
+    for got, want in zip(tree_leaves(back), tree_leaves(state.params)):
+        assert torch.equal(got, want)
     # --metrics-dir writes the fl mode's eval points as JSONL
     res = train.run(["--metrics-dir", str(tmp_path), "--device", "cpu",
                      "fl.n_ues=4", "fl.participants_per_round=2",

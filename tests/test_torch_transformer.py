@@ -87,6 +87,32 @@ def test_forward_and_loss_match_reference(kv, impl):
     assert sorted(aux) == sorted(want_aux)
 
 
+@pytest.mark.parametrize("arch", ["starcoder2_15b", "nemotron4_15b",
+                                  "deepseek_67b"])
+def test_dense_zoo_reduced_loss_matches_reference(arch):
+    """The dense remainder of the zoo (gelu, squared-ReLU and silu MLPs)
+    at ``.reduced()`` sizes in float32; loss and logits at 2e-4."""
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                                  dtype="float32")
+    port_cfg = dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="float32")
+    ref = ref_build_model(ref_cfg)
+    with jax.threefry_partitionable(False):
+        params = jax.tree.map(np.asarray,
+                              jax.jit(ref.init)(jax.random.PRNGKey(0)))
+    port = build_model(port_cfg)
+    toks = _tokens((2, 65), ref_cfg.vocab_size, seed=len(arch))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    tparams = from_numpy_tree(params, "cpu")
+    loss, _ = port.loss(tparams, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+    want, _ = jax.jit(ref.loss)(params, batch)
+    np.testing.assert_allclose(float(loss), float(want), **TOL)
+    logits, _, _ = port.forward(tparams, torch.from_numpy(batch["tokens"]))
+    want, _, _ = jax.jit(ref.forward)(params, batch["tokens"])
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), **TOL)
+
+
 def test_pallas_scoring_has_no_backward():
     _, port, params = _carried(2, attn_impl="pallas")
     tparams = from_numpy_tree(params, "cpu")
