@@ -25,7 +25,9 @@ and each prints its seconds:
    scoring and prefill shapes, its rate over the j <= i pairs and over all
    pairs, and its shared memory a CTA; flash also at recurrentgemma-2b's
    local attention, MQA at head dim 256 with a 2,048 window, in bf16 (the
-   mma.sync route) and f32; fused Adam on
+   mma.sync route) and f32; flash at mixtral-8x22b's sliding-window GQA
+   (group 6, D 128, a 4,096-key window over 4,096 keys) in bf16 and f32;
+   fused Adam on
    mamba2's in_proj leaf with bf16 p, on an f32 leaf and a ragged N; a
    working set smaller than L2 is timed with L2 flushed before each call).
    Each bf16 attention check, the SSD check (twice: the j <= i mask
@@ -88,6 +90,19 @@ and each prints its seconds:
    full width, depth cut to 2 layers (deepseek-67b whole is 134 GB of
    bf16), each scored pallas against xla with 2 flash launches at D 128,
    each held against the plain version;
+10e. score mixtral-8x22b: full width, 8 of 56 layers (bf16), on the same
+   two streams, pallas (flash with the 4,096-key window, group 6, one
+   launch per layer, each held against the plain version) against xla:
+   the losses, and the logits rows of the tokens that route to the same
+   (expert, kept) pairs in every layer (flips counted and printed), in
+   bf16 and on an f32 copy of the params streamed a layer at a time;
+10f. score deepseek-v2-236b: full width, 4 of 60 layers; MLA runs sdpa
+   (0 flash launches); losses and logits pallas against xla, two calls
+   bitwise equal (the MoE's fixed-order combine);
+10g. serve both at their depth cuts through ``launch/serve.py``'s ``run``
+   (batch 4, prompt 2,048, 32 tokens, cache 4,096; DeepSeek-V2 decodes by
+   the absorbed MLA), served logits held against a teacher-forced forward
+   on the rows that route alike, in bf16 and served in f32 at 2 layers;
 11. train mamba2: ``launch/train_e2e``'s round loop on full-width
    mamba2-370m (bf16, ``attn_impl="xla"``; 4 cohorts, A 2, S 2, batch 4,
    seq 256) with the server Adam for 3 rounds — the fused Adam kernel's
@@ -631,7 +646,7 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
     err, rel = hold(torch, "flash", got, want, f"flash kernel vs plain "
                     f"({dtype}, L={sl}, window={window})")
     del got
-    if dtype == torch.bfloat16 and window:
+    if dtype == torch.bfloat16 and 0 < window < sl:
         control(torch, "flash", fa.attention_plain(
             q.float(), k.float(), v.float(), causal=causal,
             window=window + 1), want, "window one key too wide")
@@ -650,7 +665,7 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
     t_plain = device_ms(torch, lambda: fa.attention_plain(
         q, k, v, causal=causal, window=window), reps=1, trials=3)
     mask = None
-    if window:
+    if 0 < window < sl:        # a window as long as L cuts nothing
         qp = torch.arange(sl, device="cuda")
         mask = (qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :]
                                                < window)
@@ -755,6 +770,9 @@ FLASH_SCORE_SHAPE = (2, 32, 4, 4096, 128, True, 0)
 FLASH_WINDOW_SHAPE = (2, 32, 4, 2047, 128, True, 512)
 # recurrentgemma-2b's local attention on the scoring streams: MQA, D 256
 FLASH_HYBRID_SHAPE = (2, 10, 1, 4096, 256, True, 2048)
+# mixtral-8x22b's sliding-window GQA on the scoring streams: group 6, D 128,
+# the 4,096-key window as long as each stream
+FLASH_MOE_SHAPE = (2, 48, 8, 4096, 128, True, 4096)
 DECODE_SHAPE = (4, 32, 4, 4096, 128)
 # the first designs' times at these shapes, printed for comparison only
 # (constants, not measured here; PERF.md §6, the kernel table: the first
@@ -772,7 +790,7 @@ def phase_attention_vs_plain(torch, fa, da):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE,
-                      FLASH_HYBRID_SHAPE):
+                      FLASH_HYBRID_SHAPE, FLASH_MOE_SHAPE):
             rows[("flash", dtype, shape)] = _flash_case(torch, fa, F, dtype,
                                                         *shape)
             torch.cuda.empty_cache()
@@ -2423,6 +2441,439 @@ def phase_dense_remainder(torch, fa, mods, *, reduce=False, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the MoE family (Mixtral-8x22B: MoE + sliding-window GQA through
+# the flash kernel; DeepSeek-V2-236B: MLA + routed and shared experts)
+# ---------------------------------------------------------------------------
+
+# Depth cuts at full width: the whole models are 281.3 and 478.8 GB of
+# bf16; 8 Mixtral layers are 40.9 GB, 4 DeepSeek-V2 layers 33.9 GB.  In f32
+# they would be 81.8 and 67.8 GB, so the f32 serving checks cut to 2.
+MOE_LAYERS = {"mixtral_8x22b": 8, "deepseek_v2_236b": 4}
+MOE_F32_SERVE_LAYERS = 2
+# Routing trap: the router sees the attention's bf16 rounding, and a token
+# whose k-th and (k+1)-th router probabilities nearly tie routes to
+# another expert under flash than under sdpa; its logits row then moves
+# far past 5e-2.  So the logits rows held are those of the tokens whose
+# (expert, kept) pairs agree in every layer, and they must be at least a
+# share of the tokens, or the check would hold too little.  In bf16 85.1%
+# of Mixtral's scored tokens route alike, and 90.6% (Mixtral) and 78.9%
+# (DeepSeek-V2) of the served rows (NVIDIA H100 80GB HBM3, 700 W); in f32
+# a flip needs a near-exact tie, and every row was held.
+MOE_MIN_HELD = {"bf16": 0.5, "f32": 0.9}
+# Mixtral scored on an f32 copy of the params (streamed a layer at a
+# time), pallas (the f32 flash route) against xla, and the served f32
+# logits against a teacher-forced f32 forward (both models, 2 layers):
+# 8.4e-6, 7.1e-6 and 6.3e-6 on an NVIDIA H100 80GB HBM3 at 700 W.
+MOE_F32_ROW_RTOL = 1e-4
+# Served against teacher forcing, the experts' capacity must drop nothing:
+# the gather path's capacity grows with a call's token count, so prefill
+# (8,192 tokens), decode (4) and the forward (8,316) would drop different
+# pairs, and the reference's own decode-consistency test runs dropless
+# (``reduced()`` sets 8).  Mixtral's 4.0 = E / k lets an expert take every
+# token; DeepSeek-V2's 4.0 gives each expert 4x its mean load (dropless by
+# construction, 160 / 6, would take ~50 GB of buffers), and the phase
+# checks that no pair dropped.  Timings are read at the config's 1.25.
+MOE_SERVE_CAPACITY = {"mixtral_8x22b": 4.0, "deepseek_v2_236b": 4.0}
+
+
+@contextlib.contextmanager
+def _routing(mods, out):
+    """Within the block, each routing's experts [T, k] are appended to
+    ``out`` in call order."""
+    route = mods.layers._route
+
+    def rec(params, xf, e):
+        probs, idx, aux = route(params, xf, e)
+        out.append(idx.clone())
+        return probs, idx, aux
+
+    mods.layers._route = rec
+    try:
+        yield
+    finally:
+        mods.layers._route = route
+
+
+def _route_keys(mods, idx, moe):
+    """Each token's (expert, kept) pairs as sorted keys expert * 2 + kept,
+    kept by the capacity of the call that routed ``idx``."""
+    cap = mods.layers.moe_capacity(idx.shape[0], moe)
+    kept = mods.layers.moe_dispatch(idx, moe.num_experts, cap) \
+        < moe.num_experts * cap
+    return (idx * 2 + kept).sort(dim=-1).values
+
+
+def _agreement(torch, keys_a, keys_b):
+    """Over the layers' keys ([B, L, k] each): the tokens whose (expert,
+    kept) pairs agree in every layer [B, L], the tokens whose expert set
+    differs in some layer, the tokens whose sets agree but a kept flag
+    differs, and the (token, layer) pairs whose sets differ."""
+    agree = torch.ones(keys_a[0].shape[:-1], dtype=torch.bool,
+                       device=keys_a[0].device)
+    set_flip = torch.zeros_like(agree)
+    n_layer_flips = 0
+    for ka, kb in zip(keys_a, keys_b):
+        same_set = ((ka // 2) == (kb // 2)).all(-1)
+        set_flip |= ~same_set
+        n_layer_flips += int((~same_set).sum())
+        agree &= (ka == kb).all(-1)
+    return (agree, int(set_flip.sum()),
+            int((~agree & ~set_flip).sum()), n_layer_flips)
+
+
+def _scored_keys(mods, routes, cfg, b, sl):
+    return [_route_keys(mods, r, cfg.moe).reshape(b, sl, -1) for r in routes]
+
+
+def _held_rows(torch, got, want, agree, what, kind):
+    """Max token row rel of ``got`` vs ``want`` over the rows that
+    ``agree``, and over all rows; fails if they are under the
+    ``MOE_MIN_HELD[kind]`` share of the tokens."""
+    rel = _row_rel(got, want)
+    share = float(agree.float().mean())
+    need = MOE_MIN_HELD[kind]
+    check(share >= need, f"{what}: only {share:.1%} of the tokens route "
+          f"alike in every layer (need {need:.0%})")
+    return float(rel[agree].max()), float(rel.max()), share
+
+
+def _predict_routed(mods, model, params, batch):
+    routes = []
+    with _routing(mods, routes):
+        logits = model.predict(params, batch)
+    return logits, routes
+
+
+def _forward_f32_streamed(torch, mods, model, params, tokens):
+    """Logits of ``model`` (an f32 config) on an f32 copy of the bf16
+    ``params``, made one layer at a time, so the copy of the stack is never
+    held whole (8 Mixtral layers in f32 would not fit the card)."""
+    L = mods.layers
+    emb = mods.tree_map(lambda t: t.float(), params["embedding"])
+    x = L.embed(emb, tokens)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    for i in range(model.cfg.num_layers):
+        lp = mods.tree_map(lambda t: t[i].float(), params["layers"])
+        x, _ = model._layer_apply(lp, x, positions, None,
+                                  model.cfg.sliding_window)
+        del lp
+    x = L.rmsnorm(mods.tree_map(lambda t: t.float(), params["final_norm"]),
+                  x)
+    return L.unembed(emb, x)
+
+
+def _moe_cfg(mods, arch, reduce):
+    """The scoring config at its depth cut and the stream length."""
+    cfg = mods.get_config(arch)
+    if reduce:
+        return cfg.reduced(), 96
+    return dataclasses.replace(cfg, num_layers=MOE_LAYERS[arch]), 4096
+
+
+def phase_score_mixtral(torch, fa, mods, *, reduce=False, device="cuda"):
+    """Mixtral-8x22B at full width, 8 of 56 layers (bf16), scored on the
+    two 4,096-token streams under ``attn_impl="pallas"`` — the flash
+    kernel with its 4,096-key window, one launch per layer, each held
+    against the plain version on its own inputs — against
+    ``attn_impl="xla"``: the losses; the logits rows of the tokens that
+    route alike in every layer (the rest are counted); and the same on an
+    f32 copy of the params, streamed a layer at a time.  Flash with the
+    causal mask dropped must fail the held check."""
+    cfg, seq = _moe_cfg(mods, "mixtral_8x22b", reduce)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model_p.init(torch.Generator(device=device).manual_seed(0))
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
+    b = batch["tokens"].shape[0]
+    calls = []
+    with torch.inference_mode():
+        with _recording(fa, calls):
+            fa.LAUNCHES = 0
+            loss_p = float(model_p.loss(params, batch)[0])
+            launches = fa.LAUNCHES
+        loss_p2, t_p = _timed_loss(torch, model_p, params, batch, device)
+        loss_x, t_x = _timed_loss(torch, model_x, params, batch, device)
+        call_rel = _hold_path_calls(torch, fa, calls)
+        shapes = sorted({(tuple(c[0].shape), tuple(c[1].shape), c[3], c[4])
+                         for c in calls})
+        n_calls = len(calls)
+        del calls
+
+        logits_x, routes_x = _predict_routed(mods, model_x, params, batch)
+        keys_x = _scored_keys(mods, routes_x, cfg, b, seq)
+        logits_p, routes_p = _predict_routed(mods, model_p, params, batch)
+        agree, set_flips, drop_flips, layer_flips = _agreement(
+            torch, _scored_keys(mods, routes_p, cfg, b, seq), keys_x)
+        drops = _dropped(mods, routes_x, cfg.moe)
+        held, every, share = _held_rows(torch, logits_p, logits_x, agree,
+                                        "bf16 logits, pallas vs xla",
+                                        "bf16")
+        del logits_p
+        with _no_causal(fa):
+            logits_f, routes_f = _predict_routed(mods, model_p, params,
+                                                 batch)
+        agree_f = _agreement(torch, _scored_keys(mods, routes_f, cfg, b,
+                                                 seq), keys_x)[0]
+        fault_rel = float(_row_rel(logits_f, logits_x)[agree_f].max()) \
+            if bool(agree_f.any()) else float("inf")
+        fault_share = float(agree_f.float().mean())
+        del logits_f, logits_x
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # an f32 copy: pallas (the f32 flash route) vs xla
+        m32_p, m32_x = (mods.build_model(dataclasses.replace(
+            cfg, dtype="float32", attn_impl=impl)) for impl in ("pallas",
+                                                                "xla"))
+        routes32_x, routes32_p = [], []
+        with _routing(mods, routes32_x):
+            logits_x = _forward_f32_streamed(torch, mods, m32_x, params,
+                                             batch["tokens"])
+        with _routing(mods, routes32_p):
+            logits_p = _forward_f32_streamed(torch, mods, m32_p, params,
+                                             batch["tokens"])
+        agree32, set32, drop32, _ = _agreement(
+            torch, _scored_keys(mods, routes32_p, cfg, b, seq),
+            _scored_keys(mods, routes32_x, cfg, b, seq))
+        f32_held, f32_every, _ = _held_rows(torch, logits_p, logits_x,
+                                            agree32, "f32 logits", "f32")
+        del logits_p, logits_x
+    rel = abs(loss_p - loss_x) / abs(loss_x)
+    n_tok = agree.numel()
+    print(f"[score] {cfg.name}, {cfg.num_layers} of "
+          f"{mods.get_config('mixtral_8x22b').num_layers} layers, loss on 2 "
+          f"x {seq} tokens, bf16: pallas {loss_p:.6f} ({t_p:.1f} ms, second "
+          f"call), xla {loss_x:.6f} ({t_x:.1f} ms); rel diff {rel:.2e} (rtol "
+          f"{SCORE_LOSS_RTOL:.0e}); flash launches {launches} at {shapes}")
+    print(f"[score] each flash call on the path vs plain: max row rel "
+          f"{call_rel:.3e} over {n_calls} calls (limit "
+          f"{BF16_ROW_RTOL['flash']:.0e})")
+    print(f"[score] routing, pallas vs xla, bf16 (the xla path drops "
+          f"{drops} (token, expert) pairs at capacity factor "
+          f"{cfg.moe.capacity_factor}): {set_flips} of {n_tok} "
+          f"tokens change their expert set in some layer ({layer_flips} "
+          f"(token, layer) pairs), {drop_flips} more keep their sets but "
+          f"not the same pairs; held: the {share:.1%} that route alike in "
+          f"every layer, logits max token row rel {held:.3e} (limit "
+          f"{SCORE_LOGIT_ROW_RTOL:.0e}); every token, not held: {every:.3e}")
+    print(f"[score] f32 copy of the params, pallas vs xla: {set32} tokens "
+          f"change their expert set, {drop32} their kept pairs; held rows "
+          f"max token row rel {f32_held:.3e} (limit "
+          f"{MOE_F32_ROW_RTOL:.0e}); every token {f32_every:.3e}")
+    print(f"[control] mixtral score, planted fault 'causal mask dropped': "
+          f"{fault_share:.1%} of the tokens route alike, their logits max "
+          f"token row rel {fault_rel:.3e}")
+    check(loss_p2 == loss_p, "the pallas loss changed between calls")
+    check(math.isfinite(loss_p) and rel <= SCORE_LOSS_RTOL,
+          f"pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+    check(math.isfinite(held) and held <= SCORE_LOGIT_ROW_RTOL,
+          f"pallas logits vs xla on the held rows: {held:.3e}")
+    check(math.isfinite(f32_held) and f32_held <= MOE_F32_ROW_RTOL,
+          f"f32 logits, pallas vs xla on the held rows: {f32_held:.3e}")
+    check(fault_share < MOE_MIN_HELD["bf16"]
+          or fault_rel > SCORE_LOGIT_ROW_RTOL,
+          f"the planted fault passes the held check ({fault_rel:.3e})")
+    check(n_calls == cfg.num_layers, f"{n_calls} flash calls on the "
+          f"scoring path, not one per layer ({cfg.num_layers})")
+    if device == "cuda":
+        check(launches == cfg.num_layers, f"the scoring forward launched "
+              f"flash {launches} times, not {cfg.num_layers}")
+        print(f"[score] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return dict(launches=launches, loss_ms=t_p, xla_ms=t_x,
+                call_rel=call_rel, logit_rel=held, set_flips=set_flips,
+                tokens=n_tok, f32_logit_rel=f32_held)
+
+
+def phase_score_deepseek_v2(torch, fa, mods, *, reduce=False,
+                            device="cuda"):
+    """DeepSeek-V2-236B at full width, 4 of 60 layers (bf16), scored on
+    the two streams under both ``attn_impl``s: MLA runs ``sdpa`` under
+    either, as in the reference, so flash launches 0 times; the losses and
+    logits agree, and two calls give the same logits bitwise (the MoE
+    combine sums in a fixed order, no atomics)."""
+    cfg, seq = _moe_cfg(mods, "deepseek_v2_236b", reduce)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = model_p.init(torch.Generator(device=device).manual_seed(0))
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
+    with torch.inference_mode():
+        fa.LAUNCHES = 0
+        loss_p = float(model_p.loss(params, batch)[0])
+        launches = fa.LAUNCHES
+        loss_p2, t_p = _timed_loss(torch, model_p, params, batch, device)
+        loss_x, t_x = _timed_loss(torch, model_x, params, batch, device)
+        first = model_p.predict(params, batch)
+        same = bool(torch.equal(first, model_p.predict(params, batch)))
+        logit_rel = _logit_row_rel(first, model_x.predict(params, batch))
+        del first
+    rel = abs(loss_p - loss_x) / abs(loss_x)
+    print(f"[score] {cfg.name}, {cfg.num_layers} of "
+          f"{mods.get_config('deepseek_v2_236b').num_layers} layers, loss on "
+          f"2 x {seq} tokens, bf16: pallas {loss_p:.6f} ({t_p:.1f} ms, "
+          f"second call), xla {loss_x:.6f} ({t_x:.1f} ms); rel diff "
+          f"{rel:.2e}; logits max token row rel {logit_rel:.3e}; two calls "
+          f"bitwise equal: {same}; flash launches {launches}")
+    check(loss_p2 == loss_p and same, "the logits changed between calls")
+    check(math.isfinite(loss_p) and rel <= SCORE_LOSS_RTOL,
+          f"pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+    check(math.isfinite(logit_rel) and logit_rel <= SCORE_LOGIT_ROW_RTOL,
+          f"pallas logits vs xla: max token row rel {logit_rel:.3e}")
+    check(launches == 0, f"MLA launched flash {launches} times")
+    if device == "cuda":
+        print(f"[score] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return dict(launches=launches, loss_ms=t_p, xla_ms=t_x,
+                logit_rel=logit_rel)
+
+
+@contextlib.contextmanager
+def _served_cfg(mods, layers, capacity_factor=None):
+    """Within the block, the serve entry point's configs have ``layers``
+    layers (the CLI has no depth flag, as in the reference) and, if given,
+    the experts' ``capacity_factor``."""
+    get = mods.serve.get_config
+
+    def cut(arch):
+        cfg = dataclasses.replace(get(arch), num_layers=layers)
+        if capacity_factor is None:
+            return cfg
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+
+    mods.serve.get_config = cut
+    try:
+        yield
+    finally:
+        mods.serve.get_config = get
+
+
+def _served_keys(torch, mods, routes, moe, b, lp, n_gen, layers):
+    """Per layer, the (expert, kept) keys [B, Lp + n_gen - 1, k] of a
+    served run's tokens: the prefill's call, then one call a step."""
+    keys = []
+    for i in range(layers):
+        steps = [_route_keys(mods, routes[layers * (1 + j) + i], moe)
+                 .reshape(b, 1, -1) for j in range(n_gen - 1)]
+        keys.append(torch.cat([_route_keys(mods, routes[i], moe)
+                               .reshape(b, lp, -1)] + steps, dim=1))
+    return keys
+
+
+def _dropped(mods, routes, moe):
+    """(token, expert) pairs the capacity dropped, over the calls."""
+    return sum(int((_route_keys(mods, r, moe) % 2 == 0).sum())
+               for r in routes)
+
+
+def _serve_moe(torch, mods, argv, layers, capacity_factor):
+    """Serve at the depth cut with ``capacity_factor``, and hold the
+    logits each token was chosen from against a teacher-forced forward
+    over prompt + generated tokens, on the rows whose token routes alike in
+    every layer in both runs.  Returns (result, held rel, every rel, held
+    share, set flips, pairs dropped in either run, the held rel with the
+    logits one step late)."""
+    served, forced = [], []
+    with _served_cfg(mods, layers, capacity_factor), \
+            _routing(mods, served):
+        res = mods.serve.run(argv)
+    lp, (b, n_gen) = res.prompts.shape[1], res.tokens.shape
+    with torch.inference_mode(), _routing(mods, forced):
+        toks = torch.cat([res.prompts, res.tokens[:, :-1]], dim=1)
+        want = mods.build_model(res.cfg).forward(res.params, toks)[0]
+    moe = res.cfg.moe
+    agree, set_flips, _, _ = _agreement(
+        torch, _served_keys(torch, mods, served, moe, b, lp, n_gen,
+                            res.cfg.num_layers),
+        [_route_keys(mods, r, moe).reshape(b, lp + n_gen - 1, -1)
+         for r in forced])
+    rows = agree[:, lp - 1:]
+    held, every, share = _held_rows(
+        torch, res.logits, want[:, lp - 1:], rows,
+        f"{res.cfg.name} served logits ({res.cfg.dtype})",
+        "f32" if res.cfg.dtype == "float32" else "bf16")
+    late = _row_rel(res.logits[:, 1:], want[:, lp - 1:-1])[rows[:, 1:]]
+    drops = _dropped(mods, served, moe) + _dropped(mods, forced, moe)
+    return res, held, every, share, set_flips, drops, float(late.max())
+
+
+def phase_serve_moe(torch, mods, arch, *, reduce=False, device="cuda"):
+    """Serve at the depth cut through ``launch/serve.py``'s ``run`` (batch
+    4, prompt 2,048, 32 tokens, cache 4,096; for DeepSeek-V2 the decode
+    steps run the absorbed MLA against the latent cache): timed and its
+    peak memory read as configured; then, with the experts' capacity
+    raised so that no call drops a pair (``MOE_SERVE_CAPACITY``), held
+    against a teacher-forced forward in bf16 at the reference's 5e-2 and
+    served in f32 at 2 layers (``--dtype float32``) at f32 rounding;
+    logits one step late must fail both."""
+    argv = ["--arch", arch, "--batch", "4", "--device", device]
+    argv += (["--prompt-len", "40", "--gen", "6", "--cache-len", "64"]
+             if reduce else ["--full", "--prompt-len", "2048", "--gen", "32",
+                             "--cache-len", "4096"])
+    layers = MOE_LAYERS[arch]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    routes = []
+    with _served_cfg(mods, layers), _routing(mods, routes):
+        res = mods.serve.run(argv)
+    cfg = res.cfg
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "served tokens out of the vocabulary")
+    check(int(res.cache["pos"].max()) == res.prompts.shape[1]
+          + res.tokens.shape[1] - 2, "the cache does not hold the last step")
+    prefill_ms, decode_ms, cache_keys = res.prefill_ms, res.decode_ms, \
+        sorted(res.cache)
+    drops = _dropped(mods, routes, cfg.moe)
+    del res, routes
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cf = MOE_SERVE_CAPACITY[arch]
+    res, held, every, share, flips, drops16, late = _serve_moe(
+        torch, mods, argv, layers, cf)
+    del res
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    f32_layers = min(layers, MOE_F32_SERVE_LAYERS)
+    res, held32, every32, share32, flips32, drops32, late32 = _serve_moe(
+        torch, mods, argv + ["--dtype", "float32"], f32_layers, cf)
+    del res
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[serve] {cfg.name}, {cfg.num_layers} layers, capacity factor "
+          f"{cfg.moe.capacity_factor}: prefill {prefill_ms:.1f} ms, decode "
+          f"{decode_ms:.2f} ms/token, peak memory {peak:.1f} GiB; cache "
+          f"{cache_keys}; {drops} (token, expert) pairs dropped")
+    print(f"[serve] {cfg.name} at capacity factor {cf} ({drops16} and "
+          f"{drops32} pairs dropped): served logits vs the teacher-forced "
+          f"forward, max token row rel on the rows that route alike: bf16 "
+          f"{held:.3e} on {share:.1%} ({flips} tokens change their expert "
+          f"set in some layer; limit {SERVE_LOGIT_ROW_RTOL:.0e}; every row, "
+          f"not held: {every:.3e}); served in f32 at {f32_layers} layers "
+          f"{held32:.3e} on {share32:.1%} ({flips32} set flips; limit "
+          f"{MOE_F32_ROW_RTOL:.0e}; every row {every32:.3e})")
+    print(f"[control] {cfg.name} serve, planted fault 'logits one step "
+          f"late': bf16 {late:.3e}, f32 {late32:.3e}")
+    check(drops16 == 0 and drops32 == 0, f"the capacity factor {cf} "
+          f"dropped {drops16} and {drops32} pairs")
+    check(math.isfinite(held) and held <= SERVE_LOGIT_ROW_RTOL,
+          f"served logits vs the teacher-forced forward: {held:.3e}")
+    check(math.isfinite(held32) and held32 <= MOE_F32_ROW_RTOL,
+          f"f32 served logits vs the teacher-forced forward: {held32:.3e}")
+    check(late > SERVE_LOGIT_ROW_RTOL and late32 > MOE_F32_ROW_RTOL,
+          "the checks cannot see logits one step late")
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gib=peak,
+                logit_rel=held, f32_logit_rel=held32, set_flips=flips,
+                dropped=drops)
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import (ExperimentConfig, FLConfig,
@@ -2516,6 +2967,16 @@ def main():
     dense = timed("dense remainder (2 layers each)", phase_dense_remainder,
                   torch, fa, mods)
     torch.cuda.empty_cache()
+    mixtral = timed("score mixtral-8x22b (8 layers)", phase_score_mixtral,
+                    torch, fa, mods)
+    torch.cuda.empty_cache()
+    deepseek = timed("score deepseek-v2-236b (4 layers)",
+                     phase_score_deepseek_v2, torch, fa, mods)
+    torch.cuda.empty_cache()
+    for arch in MOE_LAYERS:
+        timed(f"serve {arch} ({MOE_LAYERS[arch]} layers)", phase_serve_moe,
+              torch, mods, arch)
+        torch.cuda.empty_cache()
     adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
                               agg, mods)
     check("jax" not in sys.modules and not any(
@@ -2567,7 +3028,16 @@ def main():
              "float32": attn[("flash", torch.float32, FLASH_HYBRID_SHAPE)]},
          "dense_remainder": {
              arch: {"launches": r["launches"], "head_dim": r["head_dim"]}
-             for arch, r in dense.items()}},
+             for arch, r in dense.items()},
+         "moe": {
+             "path": "mixtral-8x22b scoring forward (8 of 56 layers), one "
+                     "launch per layer; deepseek-v2-236b's MLA runs sdpa, "
+                     "as in the JAX package",
+             "launches": mixtral["launches"],
+             "deepseek_v2_launches": deepseek["launches"],
+             "shape": list(FLASH_MOE_SHAPE), "dtype": "bfloat16",
+             **attn[("flash", torch.bfloat16, FLASH_MOE_SHAPE)],
+             "float32": attn[("flash", torch.float32, FLASH_MOE_SHAPE)]}},
         {"name": "decode_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:65",

@@ -3,15 +3,17 @@ part of the LM zoo.
 
 The LM configs are literal copies of the JAX package's
 ``configs/<arch>.py`` files (``yi_6b``, ``mamba2_370m``, ``starcoder2_15b``,
-``nemotron4_15b``, ``deepseek_67b``, ``recurrentgemma_2b``).  The rest of
-the zoo (``mixtral_8x22b``, ``deepseek_v2_236b``, ``llama32_vision_11b``,
-``musicgen_large``) is not ported yet; asking for one raises
-``NotImplementedError`` (ROADMAP queue 1, model zoo).  The reference's
-hyphenated aliases (``nemotron-4-15b``, ...) name the same configs.
+``nemotron4_15b``, ``deepseek_67b``, ``recurrentgemma_2b``,
+``mixtral_8x22b``, ``deepseek_v2_236b``).  The rest of the zoo
+(``llama32_vision_11b``, ``musicgen_large``) is not ported yet; asking for
+one raises ``NotImplementedError`` (ROADMAP queue 1, model zoo).  The
+reference's hyphenated aliases (``nemotron-4-15b``, ``mixtral-8x22b``,
+``deepseek-v2-236b``, ...) name the same configs.
 """
 from __future__ import annotations
 
-from repro_torch.config import HybridConfig, ModelConfig, SSMConfig
+from repro_torch.config import (HybridConfig, MLAConfig, ModelConfig,
+                                MoEConfig, SSMConfig)
 
 CONFIGS = {
     # 2-layer DNN with hidden size 100 for MNIST (Sec. VI-A)
@@ -133,10 +135,51 @@ CONFIGS = {
                             pattern=("rglru", "rglru", "attn")),
         source="arXiv:2402.19427",
     ),
+    # Mixtral-8x22B — MoE 8 experts top-2, GQA (48H/8KV), SWA.
+    # [arXiv:2401.04088]
+    "mixtral_8x22b": ModelConfig(
+        name="mixtral-8x22b",
+        family="moe",
+        num_layers=56,
+        d_model=6144,
+        num_heads=48,
+        num_kv_heads=8,
+        d_ff=16384,
+        vocab_size=32768,
+        max_seq_len=65536,
+        attention="gqa",
+        rope_theta=1e6,
+        sliding_window=4096,        # native SWA → long_500k runs natively
+        long_context_window=4096,
+        activation="silu",
+        moe=MoEConfig(num_experts=8, experts_per_token=2, expert_d_ff=16384),
+        source="arXiv:2401.04088",
+    ),
+    # DeepSeek-V2-236B — MLA (kv_lora 512) + MoE 160 routed top-6 + 2
+    # shared. [arXiv:2405.04434]
+    "deepseek_v2_236b": ModelConfig(
+        name="deepseek-v2-236b",
+        family="moe",
+        num_layers=60,
+        d_model=5120,
+        num_heads=128,
+        num_kv_heads=128,           # MLA: all heads share the latent cache
+        d_ff=1536,                  # routed expert width
+        vocab_size=102400,
+        max_seq_len=131072,
+        attention="mla",
+        rope_theta=1e4,
+        activation="silu",
+        moe=MoEConfig(num_experts=160, experts_per_token=6,
+                      num_shared_experts=2, expert_d_ff=1536),
+        mla=MLAConfig(kv_lora_rank=512, q_lora_rank=1536, qk_rope_head_dim=64,
+                      qk_nope_head_dim=128, v_head_dim=128),
+        long_context_window=4096,
+        source="arXiv:2405.04434",
+    ),
 }
 
-_LM_ZOO = ("mixtral_8x22b", "musicgen_large", "llama32_vision_11b",
-           "deepseek_v2_236b")
+_LM_ZOO = ("musicgen_large", "llama32_vision_11b")
 
 # the reference's hyphenated ids that the rule below does not map
 ALIASES = {"nemotron-4-15b": "nemotron4_15b",

@@ -17,11 +17,24 @@ Differences from the reference, none of which changes a result:
 * ``preferred_element_type=float32`` becomes float32 operands (a bf16 →
   float32 cast is exact, so the products are the same).
 
-MLA, MoE and cross-attention are not ported yet (ROADMAP queue 1, model
-zoo): ``TransformerLM`` and ``attention_apply`` raise on them.
+Multi-head latent attention (DeepSeek-V2) and the mixture of experts
+(``moe_apply_gather``, Mixtral and DeepSeek-V2) follow the reference step
+for step.  Two differences, again without changing a result:
+
+* the router runs in IEEE float32 whatever the TF32 setting (a TF32
+  product would flip experts), and its top-k breaks ties as
+  ``jax.lax.top_k`` does, the lower expert index first;
+* the reference's ``.at[token].add`` combine becomes a fixed-order sum of
+  each token's k contributions (ascending expert index, the order of the
+  reference's sorted updates), where a scatter-add on the card would
+  use atomics and change bf16 outputs from run to run.
+
+Cross-attention and the expert-parallel ``moe_apply_ep`` are not ported
+yet: ``attention_apply`` and ``moe_apply`` raise on them.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -34,6 +47,8 @@ from repro_torch.config import ModelConfig
 Params = Dict[str, Any]
 
 NOT_PORTED = "not ported yet (ROADMAP queue 1, model zoo)"
+NO_MESH = ("not ported yet: it needs the device mesh of ROADMAP queue 1, "
+           "item 5 (SPMD)")
 
 
 # ---------------------------------------------------------------------------
@@ -236,23 +251,25 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
-def _write_ring(cache: Params, k: torch.Tensor, v: torch.Tensor,
-                positions: torch.Tensor) -> None:
-    """Write new k/v [B, Lq, Hkv, D] into the ring buffer at slot = pos % W,
+def _write_ring(cache: Params, positions: torch.Tensor,
+                **new: torch.Tensor) -> None:
+    """Write each new entry [B, Lq, ...] into the cache's buffer of the
+    same name at slot = pos % W, and the positions into ``cache["pos"]``,
     in place.  Of more than W new tokens only the last W are kept, as the
     reference's out-of-bounds slot with ``mode="drop"`` keeps them, so
     slots never collide."""
-    b, lq = k.shape[:2]
-    w = cache["k"].shape[1]
+    b, lq = next(iter(new.values())).shape[:2]
+    w = cache["pos"].shape[1]
     pos_b = torch.broadcast_to(positions, (lq,)).to(torch.int32)
     if lq > 1:
         keep = pos_b >= (pos_b[-1] - w + 1)
         idx = torch.nonzero(keep).flatten()       # host sync: prefill only
-        k, v, pos_b = k[:, idx], v[:, idx], pos_b[idx]
+        new = {name: t[:, idx] for name, t in new.items()}
+        pos_b = pos_b[idx]
     # (one new token is always kept: pos >= pos - W + 1)
     slots = (pos_b % w).long()
-    cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
+    for name, t in new.items():
+        cache[name].index_copy_(1, slots, t.to(cache[name].dtype))
     cache["pos"].index_copy_(1, slots,
                              torch.broadcast_to(pos_b, (b, pos_b.shape[0])))
 
@@ -286,7 +303,7 @@ def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
 
     q_pos = torch.broadcast_to(positions, (b, lq))
     if cache is not None:
-        _write_ring(cache, k, v, positions)
+        _write_ring(cache, positions, k=k, v=v)
         if lq == 1:
             # decode: attend against the cache contents
             k, v, k_pos = cache["k"], cache["v"], cache["pos"]
@@ -305,6 +322,127 @@ def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
         out = sdpa(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
                    window=window, cast_f32=cfg.attn_cast_f32)
     out = out.reshape(b, lq, hq * hd) @ params["w_o"]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    m = cfg.mla
+    dt = _dt(cfg)
+    h = cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(device=device, lead=lead)
+    p: Params = {
+        "w_dkv": dense_init(gen, cfg.d_model, m.kv_lora_rank, dt, **kw),
+        "w_kr": dense_init(gen, cfg.d_model, m.qk_rope_head_dim, dt, **kw),
+        "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_head_dim, dt,
+                           **kw),
+        "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dt, **kw),
+        "w_o": dense_init(gen, h * m.v_head_dim, cfg.d_model, dt,
+                          scale=1.0 / math.sqrt(
+                              h * m.v_head_dim * 2 * cfg.num_layers), **kw),
+        "norm_ckv": rmsnorm_init(m.kv_lora_rank, dt, **kw),
+    }
+    if m.q_lora_rank:
+        p["w_dq"] = dense_init(gen, cfg.d_model, m.q_lora_rank, dt, **kw)
+        p["w_uq"] = dense_init(gen, m.q_lora_rank, h * qk_head, dt, **kw)
+        p["norm_q"] = rmsnorm_init(m.q_lora_rank, dt, **kw)
+    else:
+        p["w_q"] = dense_init(gen, cfg.d_model, h * qk_head, dt, **kw)
+    return p
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   num_layers: Optional[int] = None, *, device="cpu"
+                   ) -> Params:
+    """MLA latent cache: per position the normalised latent c_kv [rank]
+    and the rotary key [rope_dim]; ``pos`` as in ``init_kv_cache``."""
+    m = cfg.mla
+    dt = _dt(cfg)
+    nl = num_layers if num_layers is not None else cfg.num_layers
+    return {
+        "ckv": torch.zeros((nl, batch, cache_len, m.kv_lora_rank), dtype=dt,
+                           device=device),
+        "kr": torch.zeros((nl, batch, cache_len, m.qk_rope_head_dim),
+                          dtype=dt, device=device),
+        "pos": torch.full((nl, batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
+              positions: torch.Tensor, cache: Optional[Params] = None,
+              window: int = 0) -> Tuple[torch.Tensor, Optional[Params]]:
+    """MLA attention.  Train and prefill materialise k/v heads and run
+    ``sdpa`` (qk head dim 192 differs from v's 128 at full width, which the
+    flash kernel does not take; the reference runs ``sdpa`` here too, under
+    either ``attn_impl``).  A decode step (``cache`` and one token) runs
+    the *absorbed* form against the latent cache: scores q_nope·(W_uk c) +
+    q_rope·k_r computed as (q_nope W_ukᵀ)·c, and the output W_uv applied
+    after the latent is aggregated.  Its casts are the reference's, one for
+    one.  Returns (out, the cache written in place, or None)."""
+    m = cfg.mla
+    b, lq, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    if m.q_lora_rank:
+        q = rmsnorm(params["norm_q"], x @ params["w_dq"]) @ params["w_uq"]
+    else:
+        q = x @ params["w_q"]
+    q = q.reshape(b, lq, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = rmsnorm(params["norm_ckv"], x @ params["w_dkv"])         # [B,L,rank]
+    kr = (x @ params["w_kr"])[:, :, None, :]                       # [B,L,1,dr]
+    kr = apply_rope(kr, positions, cfg.rope_theta)[:, :, 0, :]     # [B,L,dr]
+
+    scale = 1.0 / math.sqrt(dn + dr)
+    q_pos = torch.broadcast_to(positions, (b, lq))
+    if cache is not None:
+        _write_ring(cache, positions, ckv=ckv, kr=kr)
+
+    if cache is not None and lq == 1:
+        # absorbed decode.  ``preferred_element_type=float32`` is float32
+        # operands here (exact for bf16), so ``cast`` reduces to the
+        # reference's explicit roundings: q_lat to the cache's dtype and,
+        # without attn_cast_f32, the probabilities and the latent to the
+        # weights' dtype
+        cckv, ckr, cpos = cache["ckv"], cache["kr"], cache["pos"]
+        w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, dn)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(),
+                             w_uk.float())                        # [B,Lq,H,r]
+        s_lat = torch.einsum("bqhr,bkr->bhqk",
+                             q_lat.to(cckv.dtype).float(), cckv.float())
+        s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), ckr.float())
+        logits = (s_lat + s_rope) * scale
+        mask = _attn_scores_mask(q_pos, cpos, causal=True, window=window)
+        logits = logits.masked_fill(~mask[:, None, :, :], -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        if not cfg.attn_cast_f32:
+            probs = probs.to(cckv.dtype)
+        # out_h = probs · (W_uv c): aggregate the latent, then up-project
+        lat = torch.einsum("bhqk,bkr->bqhr", probs.float(), cckv.float())
+        w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, dv)
+        if not cfg.attn_cast_f32:
+            lat = lat.to(w_uv.dtype)
+        out = torch.einsum("bqhr,rhd->bqhd", lat.float(), w_uv.float())
+        out = out.to(x.dtype).reshape(b, lq, h * dv) @ params["w_o"]
+        return out, cache
+
+    # train / prefill: materialise k/v heads (the standard formulation)
+    k_nope = (ckv @ params["w_uk"]).reshape(b, lq, h, dn)
+    vh = (ckv @ params["w_uv"]).reshape(b, lq, h, dv)
+    kh = torch.cat([k_nope, torch.broadcast_to(kr[:, :, None, :],
+                                               (b, lq, h, dr))], dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa(qh, kh, vh, q_pos=q_pos, k_pos=q_pos, causal=True,
+               window=window, scale=scale, cast_f32=cfg.attn_cast_f32)
+    out = out.reshape(b, lq, h * dv) @ params["w_o"]
     return out, cache
 
 
@@ -349,6 +487,148 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         h = act(up)
     return h @ params[prefix + "w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    """The router in float32, the expert banks ``[E, in, out]`` (and the
+    shared experts) in the model dtype, as in the reference."""
+    e = cfg.moe
+    dt = _dt(cfg)
+    f = e.expert_d_ff or cfg.d_ff
+    d = cfg.d_model
+    sc_in = 1.0 / math.sqrt(d)
+    sc_out = 1.0 / math.sqrt(f * 2 * cfg.num_layers)
+    kw = dict(device=device, lead=lead)
+    bank = dict(device=device, lead=lead + (e.num_experts,))
+    p: Params = {
+        "router": dense_init(gen, d, e.num_experts, torch.float32,
+                             scale=sc_in, **kw),
+        "moe_gate": dense_init(gen, d, f, dt, sc_in, **bank),
+        "moe_up": dense_init(gen, d, f, dt, sc_in, **bank),
+        "moe_down": dense_init(gen, f, d, dt, sc_out, **bank),
+    }
+    if e.num_shared_experts:
+        fs = f * e.num_shared_experts
+        p["shared_gate"] = dense_init(gen, d, fs, dt, scale=sc_in, **kw)
+        p["shared_up"] = dense_init(gen, d, fs, dt, scale=sc_in, **kw)
+        p["shared_down"] = dense_init(gen, fs, d, dt, scale=sc_out, **kw)
+    return p
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """float32 matmuls in IEEE float32 within the block (no TF32)."""
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
+def _route(params: Params, xf: torch.Tensor, e
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing.  xf: [T, d] f32.  Returns (probs [T,k], idx [T,k],
+    aux).  A stable descending sort keeps tied experts in index order, the
+    order ``jax.lax.top_k`` returns them in."""
+    with _ieee_f32():
+        logits = xf @ params["router"]                             # [T, E]
+    full = torch.softmax(logits, dim=-1)
+    probs, idx = torch.sort(full, dim=-1, descending=True, stable=True)
+    probs = probs[:, :e.experts_per_token]
+    idx = idx[:, :e.experts_per_token]
+    probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+    # Switch-style load-balance loss
+    counts = torch.bincount(idx.reshape(-1), minlength=e.num_experts).float()
+    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    frac_probs = full.mean(dim=0)
+    aux = e.num_experts * torch.sum(frac_tokens * frac_probs) \
+        * e.router_aux_loss_coef
+    return probs, idx, aux
+
+
+def moe_capacity(t: int, e) -> int:
+    """Slots an expert has for a call of ``t`` tokens (a multiple of 8)."""
+    cap = int(math.ceil(t * e.experts_per_token / e.num_experts
+                        * e.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_dispatch(idx: torch.Tensor, num_experts: int, cap: int
+                 ) -> torch.Tensor:
+    """The reference's capacity buckets: the (token, slot) pairs sorted
+    stably by expert, each expert's first ``cap`` kept.  Returns each
+    pair's row in the [E * cap + 1] expert buffer, [T, k]; a dropped pair
+    gets the last row, E * cap."""
+    t, k = idx.shape
+    e_flat = idx.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    se = e_flat[order]
+    starts = torch.searchsorted(se, torch.arange(num_experts, device=se.device,
+                                                 dtype=se.dtype))
+    slot = torch.arange(t * k, device=se.device) - starts[se]
+    dst = torch.where(slot < cap, se * cap + slot, num_experts * cap)
+    out = torch.empty_like(dst)
+    out[order] = dst                          # back to (token, slot) order
+    return out.reshape(t, k)
+
+
+def moe_apply_gather(params: Params, x: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bucketed sort/gather MoE (the reference's single-host
+    path).  The expert products are batched matmuls over [E, cap, d]; each
+    token's kept contributions, scaled by its gate rounded to x's dtype,
+    are summed in ascending expert order in x's dtype."""
+    e = cfg.moe
+    b, sl, d = x.shape
+    t = b * sl
+    xf = x.reshape(t, d)
+    probs, idx, aux = _route(params, xf.float(), e)
+
+    cap = moe_capacity(t, e)
+    dst = moe_dispatch(idx, e.num_experts, cap)                    # [T, k]
+    buf = x.new_zeros((e.num_experts * cap + 1, d))
+    buf[dst.reshape(-1)] = xf.repeat_interleave(e.experts_per_token, dim=0)
+    hb = buf[:-1].reshape(e.num_experts, cap, d)
+    act = _act("silu")
+    hg = torch.bmm(hb, params["moe_gate"])
+    hu = torch.bmm(hb, params["moe_up"])
+    ho = torch.bmm(act(hg) * hu, params["moe_down"])
+    ho = torch.cat([ho.reshape(e.num_experts * cap, d), x.new_zeros((1, d))])
+    # each token's pairs in ascending expert order (a token's k experts
+    # differ, so the order is unique)
+    by_expert = torch.argsort(idx, dim=-1)
+    dst = torch.gather(dst, 1, by_expert)
+    gate = torch.gather(probs, 1, by_expert) * (dst < e.num_experts * cap)
+    gate = gate.to(x.dtype)
+    out = x.new_zeros((t, d))
+    for j in range(e.experts_per_token):
+        out = out + ho[dst[:, j]] * gate[:, j, None]
+
+    if e.num_shared_experts:
+        out = out + _shared_expert(params, xf, cfg)
+    return out.reshape(b, sl, d), aux
+
+
+def _shared_expert(params: Params, xf: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    act = _act("silu")
+    h = act(xf @ params["shared_gate"]) * (xf @ params["shared_up"])
+    return h @ params["shared_down"]
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              impl: str = "gather") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``impl="gather"`` runs ``moe_apply_gather``.  The reference's
+    ``"ep"`` (expert parallelism through ``shard_map``) needs a mesh the
+    port does not have yet, so it raises rather than quietly gathering."""
+    if impl == "ep":
+        raise NotImplementedError(f"moe_apply_ep is {NO_MESH}")
+    return moe_apply_gather(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
-"""Decoder-only transformer stack, dense family (llama-style GQA/RoPE).
+"""Decoder-only transformer stack: dense (llama-style GQA/RoPE, sliding
+window) and MoE (Mixtral: GQA + mixture of experts; DeepSeek-V2: MLA +
+routed and shared experts).
 
-The port of the JAX package's ``models/transformer.py`` for ``family ==
-"dense"``.  Params keep the reference's names and its stacked leading layer
-axis (``params["layers"][name]`` is ``[num_layers, ...]``), so the JAX
-package's params carried over as numpy (``utils.tree.from_numpy_tree``)
-are the port's params.  The reference scans the stack with ``lax.scan``;
-here a Python loop walks the layer axis, taking views.  ``cfg.remat``
-(activation checkpointing) changes memory, not results, and is not applied:
-this slice serves and scores, it does not train at full width.
+The port of the JAX package's ``models/transformer.py`` for ``family``
+"dense" and "moe".  Params keep the reference's names and its stacked
+leading layer axis (``params["layers"][name]`` is ``[num_layers, ...]``,
+the experts ``params["layers"]["moe"]`` likewise), so the JAX package's
+params carried over as numpy (``utils.tree.from_numpy_tree``) are the
+port's params.  The reference scans the stack with ``lax.scan``; here a
+Python loop walks the layer axis, taking views.  ``cfg.remat``
+(activation checkpointing) changes memory, not results, and is not
+applied: this slice serves and scores, it does not train at full width.
 
-With ``cfg.attn_impl == "pallas"`` a call without a cache (``forward``,
-``loss``, ``predict``) runs attention through the flash kernel
-(``kernels/flash_attention.py``); prefill and decode go through ``sdpa``,
-as in the reference.  ``prefill`` and ``decode_step`` write the cache in
-place and return it.
+With ``cfg.attn_impl == "pallas"`` a GQA call without a cache
+(``forward``, ``loss``, ``predict``) runs attention through the flash
+kernel (``kernels/flash_attention.py``); prefill and decode go through
+``sdpa``, and MLA always does, as in the reference.  ``prefill`` and
+``decode_step`` write the cache in place and return it.
 
-MoE, MLA and cross-attention are not ported yet (ROADMAP queue 1, model zoo).
+Cross-attention (the vlm family) is not ported yet (ROADMAP queue 1), nor
+is ``moe_impl="ep"`` (queue 1, item 5: it needs a device mesh).
 """
 from __future__ import annotations
 
@@ -41,14 +45,15 @@ class TransformerLM:
       decode_step(params, cache, tokens, pos) -> (logits, cache)
     """
 
-    def __init__(self, cfg: ModelConfig):
-        if cfg.moe is not None:
-            raise NotImplementedError(f"mixture of experts is {L.NOT_PORTED}")
-        if cfg.attention == "mla":
-            raise NotImplementedError(f"MLA attention is {L.NOT_PORTED}")
+    def __init__(self, cfg: ModelConfig, moe_impl: str = "gather"):
         if cfg.cross_attn_every:
             raise NotImplementedError(f"cross-attention is {L.NOT_PORTED}")
         self.cfg = cfg
+        self.moe_impl = moe_impl
+        self.is_moe = cfg.moe is not None
+        self.is_mla = cfg.attention == "mla"
+        if self.is_moe and moe_impl == "ep":
+            raise NotImplementedError(f"moe_impl='ep' is {L.NO_MESH}")
 
     # ------------------------------------------------------------- init ---
     def init(self, gen: Optional[torch.Generator], *, device=None) -> Params:
@@ -60,13 +65,17 @@ class TransformerLM:
             device = gen.device if gen is not None else "cuda"
         dt = L._dt(cfg)
         norm_init, _ = L.make_norm(cfg)
-        lead = (cfg.num_layers,)
+        kw = dict(device=device, lead=(cfg.num_layers,))
         layer = {
-            "norm_attn": norm_init(cfg.d_model, dt, device=device, lead=lead),
-            "norm_ffn": norm_init(cfg.d_model, dt, device=device, lead=lead),
-            "attn": L.attention_init(gen, cfg, device=device, lead=lead),
+            "norm_attn": norm_init(cfg.d_model, dt, **kw),
+            "norm_ffn": norm_init(cfg.d_model, dt, **kw),
+            "attn": (L.mla_init(gen, cfg, **kw) if self.is_mla
+                     else L.attention_init(gen, cfg, **kw)),
         }
-        layer.update(L.mlp_init(gen, cfg, device=device, lead=lead))
+        if self.is_moe:
+            layer["moe"] = L.moe_init(gen, cfg, **kw)
+        else:
+            layer.update(L.mlp_init(gen, cfg, **kw))
         return {
             "embedding": L.embedding_init(gen, cfg, device=device),
             "final_norm": norm_init(cfg.d_model, dt, device=device),
@@ -76,16 +85,27 @@ class TransformerLM:
     # ---------------------------------------------------------- layers ----
     def _layer_apply(self, p: Params, x: torch.Tensor,
                      positions: torch.Tensor, cache: Optional[Params],
-                     window: int) -> torch.Tensor:
+                     window: int
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One layer → (x, its router's aux loss, or None without
+        experts)."""
         cfg = self.cfg
         _, norm = L.make_norm(cfg)
         h = norm(p["norm_attn"], x)
-        attn_out, _ = L.attention_apply(p["attn"], h, cfg=cfg,
-                                        positions=positions, cache=cache,
-                                        causal=True, window=window)
+        if self.is_mla:
+            attn_out, _ = L.mla_apply(p["attn"], h, cfg=cfg,
+                                      positions=positions, cache=cache,
+                                      window=window)
+        else:
+            attn_out, _ = L.attention_apply(p["attn"], h, cfg=cfg,
+                                            positions=positions, cache=cache,
+                                            causal=True, window=window)
         x = x + attn_out
         h = norm(p["norm_ffn"], x)
-        return x + L.mlp_apply(p, h, cfg)
+        if self.is_moe:
+            ffn_out, aux = L.moe_apply(p["moe"], h, cfg, impl=self.moe_impl)
+            return x + ffn_out, aux
+        return x + L.mlp_apply(p, h, cfg), None
 
     # --------------------------------------------------------- forward ----
     def forward(self, params: Params, tokens: torch.Tensor, *,
@@ -106,15 +126,17 @@ class TransformerLM:
         win = cfg.sliding_window if window is None else window
 
         x = L.embed(params["embedding"], tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
             lc = (tree_map(lambda a: a[i], cache) if cache is not None
                   else None)
-            x = self._layer_apply(lp, x, positions, lc, win)
+            x, a = self._layer_apply(lp, x, positions, lc, win)
+            if a is not None:
+                aux = aux + a
 
         x = L.make_norm(cfg)[1](params["final_norm"], x)
         logits = L.unembed(params["embedding"], x)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return logits, cache, aux
 
     # ------------------------------------------------------------ loss ----
@@ -134,6 +156,8 @@ class TransformerLM:
     # ------------------------------------------------------- serving ------
     def init_cache(self, batch: int, cache_len: int, *, device="cuda"
                    ) -> Params:
+        if self.is_mla:
+            return L.init_mla_cache(self.cfg, batch, cache_len, device=device)
         return L.init_kv_cache(self.cfg, batch, cache_len, device=device)
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache_len: int,

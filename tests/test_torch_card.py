@@ -159,6 +159,11 @@ FLASH_CASES = [
     (1, 4, 2, 129, 256, True, 0),
     (1, 2, 1, 200, 256, False, 0),
     (1, 10, 1, 4096, 256, True, 2048),
+    # Mixtral's sliding window on its scoring path: GQA group 6 at D 128
+    # with the window as long as the sequence (it must cut nothing beyond
+    # the causal mask), at a tile multiple and at a ragged L
+    (1, 12, 2, 1024, 128, True, 1024),
+    (2, 12, 2, 1000, 128, True, 1000),
 ]
 
 ROUTE = {16: "mma-sync", 32: "mma-sync", 64: "wgmma-tma", 128: "wgmma-tma",
@@ -233,6 +238,66 @@ def test_flash_kernel_broadcast_kv(dtype, d):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
     _assert_attn_close("flash", got, want[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sl", [1024, 1000])
+def test_flash_kernel_window_of_l_equals_causal(dtype, sl):
+    """A window as long as the sequence keeps every causal key: the
+    kernel's output equals its causal output without a window, bitwise
+    (group 6 at D 128, Mixtral's scoring shape cut to 12 heads)."""
+    _need_card()
+    q, k, v = _randn(sl, dtype, (1, 12, sl, 128), (1, 2, sl, 128),
+                     (1, 2, sl, 128))
+    windowed = fa.flash_attention_bhld(q, k, v, causal=True, window=sl)
+    causal = fa.flash_attention_bhld(q, k, v, causal=True, window=0)
+    assert torch.equal(windowed, causal)
+
+
+def _moe_case(seed):
+    """A DeepSeek-V2-like MoE in bf16 (16 experts, top-6, one shared
+    expert, capacity factor 1 so that some pairs drop) and its input."""
+    from repro_torch.config import ModelConfig, MoEConfig
+    from repro_torch.models import layers as L
+    cfg = ModelConfig(d_model=256, num_layers=2, d_ff=128, dtype="bfloat16",
+                      moe=MoEConfig(num_experts=16, experts_per_token=6,
+                                    num_shared_experts=1, expert_d_ff=128,
+                                    capacity_factor=1.0))
+    params = L.moe_init(torch.Generator().manual_seed(seed), cfg)
+    x = torch.randn((4, 64, 256), generator=torch.Generator().manual_seed(
+        seed + 1)).to(torch.bfloat16)
+    return L, cfg, params, x
+
+
+def test_moe_gather_on_card_is_deterministic_and_matches_cpu():
+    """The fixed-order combine: two calls on the card give the same bits
+    (a scatter-add with atomics would not, at top-6 in bf16), and the
+    output rows agree with the CPU's within 1e-2 relative (bf16 expert
+    products in another summation order).  The router's top-6 gaps exceed
+    1e-5 on these inputs, so no token routes differently on the card."""
+    _need_card()
+    L, cfg, params, x = _moe_case(0)
+    xf = x.reshape(-1, 256).double()
+    full = torch.softmax(xf @ params["router"].double(), -1)
+    srt = full.sort(-1, descending=True).values
+    assert float((srt[:, 5] - srt[:, 6]).min()) > 1e-5
+    want, want_aux = L.moe_apply_gather(params, x, cfg)
+    dparams = {k: v.cuda() for k, v in params.items()}
+    got, aux = L.moe_apply_gather(dparams, x.cuda(), cfg)
+    again, _ = L.moe_apply_gather(dparams, x.cuda(), cfg)
+    assert torch.equal(got, again)
+    cap = L.moe_capacity(x.shape[0] * x.shape[1], cfg.moe)
+    _, idx, _ = L._route(dparams, x.cuda().reshape(-1, 256).float(), cfg.moe)
+    dst = L.moe_dispatch(idx, 16, cap).cpu()
+    _, want_idx, _ = L._route(params, x.reshape(-1, 256).float(), cfg.moe)
+    assert torch.equal(idx.cpu(), want_idx)
+    assert torch.equal(dst, L.moe_dispatch(want_idx, 16, cap))
+    assert bool((dst == 16 * cap).any())            # some pairs dropped
+    got, want = got.float().cpu(), want.float()
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(rel.max()) <= 1e-2
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():

@@ -6,7 +6,9 @@ stored as its uint16 bit view, so a file written by one loads in the
 other.  Trees are made with numpy from a seed and hold float32, bfloat16
 and int32 leaves, nested dicts and a list; every comparison is bitwise.
 The training launchers' ``--ckpt-dir`` writes a file that loads back (and
-loads in the reference, into the reference model's own params).
+loads in the reference, into the reference model's own params).  The MoE
+family's reduced params (Mixtral, DeepSeek-V2: nested ``moe`` dicts, a
+float32 router beside bfloat16 expert banks) cross both ways bitwise.
 """
 import json
 
@@ -21,7 +23,9 @@ from repro import checkpoint as ref_ckpt
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 from repro_torch import checkpoint as ckpt
+from repro_torch.configs import get_config
 from repro_torch.launch import train, train_e2e
+from repro_torch.models import build_model
 
 
 def _numpy_tree(seed):
@@ -178,3 +182,26 @@ def test_train_e2e_ckpt_dir_writes_a_file_that_loads_back(tmp_path, capsys):
     back = ckpt.load_checkpoint(fname)
     assert back["embedding"]["tok_embed"].dtype == torch.bfloat16
     assert tuple(back["layers"]["attn"]["w_q"].shape) == (4, 256, 256)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v2_236b"])
+def test_moe_params_cross_both_ways_bitwise(tmp_path, arch):
+    ref_model = ref_build_model(ref_get_config(arch).reduced())
+    port_model = build_model(get_config(arch).reduced())
+    ref_params = ref_model.init(jax.random.PRNGKey(3))
+    port_params = port_model.init(torch.Generator().manual_seed(3))
+    for tree in (ref_params, port_params):
+        moe = tree["layers"]["moe"]
+        assert str(moe["router"].dtype).endswith("float32")
+        assert str(moe["moe_gate"].dtype).endswith("bfloat16")
+
+    fname = ref_ckpt.save_checkpoint(str(tmp_path / "ref"), ref_params,
+                                     step=1)
+    _same_bits(ckpt.load_checkpoint(fname), ref_params)
+    got = ckpt.load_checkpoint(fname, like=port_params)
+    assert got["layers"]["moe"]["router"].dtype == torch.float32
+    _same_bits(got, ref_params)
+
+    fname = ckpt.save_checkpoint(str(tmp_path / "port"), port_params, step=1)
+    _same_bits(ref_ckpt.load_checkpoint(fname, like=ref_params), port_params)
+    _same_bits(ckpt.load_checkpoint(fname, like=port_params), port_params)

@@ -91,7 +91,8 @@ def test_numpy_tree_round_trip():
 
 @pytest.mark.parametrize("arch", ["yi_6b", "mamba2_370m", "starcoder2_15b",
                                   "nemotron4_15b", "deepseek_67b",
-                                  "recurrentgemma_2b"])
+                                  "recurrentgemma_2b", "mixtral_8x22b",
+                                  "deepseek_v2_236b"])
 def test_lm_configs_are_literal_copies(arch):
     want = dataclasses.asdict(ref_get_config(arch))
     assert dataclasses.asdict(get_config(arch)) == want
@@ -99,7 +100,8 @@ def test_lm_configs_are_literal_copies(arch):
 
 
 def test_unported_families_name_the_roadmap_queue():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        get_config("mixtral_8x22b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(ref_get_config("mixtral_8x22b"))
+    for arch in ("llama32_vision_11b", "musicgen_large"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            build_model(ref_get_config(arch))

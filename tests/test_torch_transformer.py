@@ -210,7 +210,9 @@ def test_serve_without_a_card_raises():
 
 def test_unported_parts_of_the_dense_stack_raise():
     _, port_cfg = _cfgs(2)
+    moe_cfg = dataclasses.replace(port_cfg, moe=get_config(
+        "mixtral_8x22b").reduced().moe)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(dataclasses.replace(port_cfg, attention="mla"))
+        build_model(moe_cfg, moe_impl="ep")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         build_model(dataclasses.replace(port_cfg, cross_attn_every=2))
