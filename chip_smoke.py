@@ -27,7 +27,9 @@ and each prints its seconds:
    local attention, MQA at head dim 256 with a 2,048 window, in bf16 (the
    mma.sync route) and f32; flash at mixtral-8x22b's sliding-window GQA
    (group 6, D 128, a 4,096-key window over 4,096 keys) in bf16 and f32;
-   fused Adam on
+   flash at llama-3.2-vision-11b's GQA (group 4, D 128) and at
+   musicgen-large's full MHA (group 1, D 64, the wgmma route), both
+   causal over 4,096 keys, in bf16 and f32; fused Adam on
    mamba2's in_proj leaf with bf16 p, on an f32 leaf and a ragged N; a
    working set smaller than L2 is timed with L2 flushed before each call).
    Each bf16 attention check, the SSD check (twice: the j <= i mask
@@ -103,6 +105,22 @@ and each prints its seconds:
    (batch 4, prompt 2,048, 32 tokens, cache 4,096; DeepSeek-V2 decodes by
    the absorbed MLA), served logits held against a teacher-forced forward
    on the rows that route alike, in bf16 and served in f32 at 2 layers;
+10h. score llama-3.2-vision-11b: full width and depth (40 self layers,
+   8 gated cross layers over the 1,601 stub image tokens, gates drawn
+   nonzero from a seeded generator), bf16, on the same two streams,
+   pallas (40 flash launches, group 4, each held against the plain
+   version; cross-attention runs sdpa) against xla: the losses, every
+   token's logits in bf16 and on an f32 copy streamed a layer at a time;
+   flash with the causal mask dropped must fail the bf16 check, the gates
+   set back to zero the f32 one;
+10i. serve it through ``launch/serve.py``'s ``run`` (batch 4, prompt
+   2,048, 32 tokens, cache 4,096): prefill, decode beside the weight-read
+   bound, peak memory, the image K/V projections every step recomputes
+   timed alone; served logits against a teacher-forced forward in bf16,
+   and served in f32 at 2 of the 8 groups;
+10j–10k. the same for musicgen-large (48 layers of MHA at D 64, 48 flash
+   launches; each stream 4,096 tokens x 4 codebooks), served in f32 at
+   full depth;
 11. train mamba2: ``launch/train_e2e``'s round loop on full-width
    mamba2-370m (bf16, ``attn_impl="xla"``; 4 cohorts, A 2, S 2, batch 4,
    seq 256) with the server Adam for 3 rounds — the fused Adam kernel's
@@ -773,6 +791,12 @@ FLASH_HYBRID_SHAPE = (2, 10, 1, 4096, 256, True, 2048)
 # mixtral-8x22b's sliding-window GQA on the scoring streams: group 6, D 128,
 # the 4,096-key window as long as each stream
 FLASH_MOE_SHAPE = (2, 48, 8, 4096, 128, True, 4096)
+# the rest of the zoo on the scoring streams: llama-3.2-vision-11b's self
+# attention (group 4, D 128) and musicgen-large's full MHA at D 64
+FLASH_VISION_SHAPE = (2, 32, 8, 4096, 128, True, 0)
+FLASH_AUDIO_SHAPE = (2, 32, 32, 4096, 64, True, 0)
+FLASH_ZOO_SHAPES = {"llama32_vision_11b": FLASH_VISION_SHAPE,
+                    "musicgen_large": FLASH_AUDIO_SHAPE}
 DECODE_SHAPE = (4, 32, 4, 4096, 128)
 # the first designs' times at these shapes, printed for comparison only
 # (constants, not measured here; PERF.md §6, the kernel table: the first
@@ -790,7 +814,8 @@ def phase_attention_vs_plain(torch, fa, da):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE,
-                      FLASH_HYBRID_SHAPE, FLASH_MOE_SHAPE):
+                      FLASH_HYBRID_SHAPE, FLASH_MOE_SHAPE,
+                      *FLASH_ZOO_SHAPES.values()):
             rows[("flash", dtype, shape)] = _flash_case(torch, fa, F, dtype,
                                                         *shape)
             torch.cuda.empty_cache()
@@ -965,13 +990,22 @@ def _no_causal(fa):
         q, k, v, causal=False, window=window))
 
 
-def _score_batch(torch, mods, vocab, seq, device):
+def _score_batch(torch, mods, vocab, seq, device, codebooks=0):
     """The two users' token streams of the yi-6b phase (the seeds of
-    ``examples/serve_personalized.py``)."""
+    ``examples/serve_personalized.py``); with ``codebooks`` K > 0 (the
+    audio family) each user's stream is [seq, K], codebook k drawn with
+    the user's seed + 100 k (codebook 0 is the text models' stream)."""
     import numpy as np
-    streams = np.stack([mods.synthetic_lm_corpus(seq + 1, vocab=vocab,
-                                                 seed=s) for s in (10, 11)])
-    toks = torch.from_numpy(streams).to(device)
+
+    def stream(s):
+        if not codebooks:
+            return mods.synthetic_lm_corpus(seq + 1, vocab=vocab, seed=s)
+        return np.stack([mods.synthetic_lm_corpus(seq + 1, vocab=vocab,
+                                                  seed=s + 100 * k)
+                         for k in range(codebooks)], axis=-1)
+
+    toks = torch.from_numpy(np.stack([stream(s) for s in (10, 11)])) \
+        .to(device)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
@@ -2312,13 +2346,14 @@ def _window_short(mods):
 
 def _served_vs_forced(torch, mods, argv):
     """``serve.run(argv)``, and the logits each token was chosen from
-    against a teacher-forced ``forward`` over prompt + generated tokens:
+    against a teacher-forced ``predict`` over prompt + generated tokens:
     (result, max token row rel, the same with the logits one step late)."""
     res = mods.serve.run(argv)
     lp = res.prompts.shape[1]
     with torch.inference_mode():
         toks = torch.cat([res.prompts, res.tokens[:, :-1]], dim=1)
-        want = mods.build_model(res.cfg).forward(res.params, toks)[0]
+        want = mods.build_model(res.cfg).predict(res.params,
+                                                 {"tokens": toks})
         want = want[:, lp - 1:]
     rel = float(_row_rel(res.logits, want).max())
     shifted = float(_row_rel(res.logits[:, 1:], want[:, :-1]).max())
@@ -2548,20 +2583,29 @@ def _predict_routed(mods, model, params, batch):
 def _forward_f32_streamed(torch, mods, model, params, tokens):
     """Logits of ``model`` (an f32 config) on an f32 copy of the bf16
     ``params``, made one layer at a time, so the copy of the stack is never
-    held whole (8 Mixtral layers in f32 would not fit the card)."""
-    L = mods.layers
-    emb = mods.tree_map(lambda t: t.float(), params["embedding"])
-    x = L.embed(emb, tokens)
+    held whole (8 Mixtral layers, or llama-3.2-vision-11b whole, in f32
+    would not fit the card beside the bf16 params).  A model with cross
+    layers runs each after its group, over the stub image in f32."""
+    top = {k: mods.tree_map(lambda t: t.float(), params[k])
+           for k in ("embedding", "final_norm")}
+    x = model._embed(top, tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
+    every = model.cfg.cross_attn_every
+    if model.n_cross:
+        image = model.stub_image_embeds(tokens.shape[0], torch.float32,
+                                        device=tokens.device)
     for i in range(model.cfg.num_layers):
         lp = mods.tree_map(lambda t: t[i].float(), params["layers"])
         x, _ = model._layer_apply(lp, x, positions, None,
                                   model.cfg.sliding_window)
         del lp
-    x = L.rmsnorm(mods.tree_map(lambda t: t.float(), params["final_norm"]),
-                  x)
-    return L.unembed(emb, x)
+        if model.n_cross and (i + 1) % every == 0:
+            cp = mods.tree_map(lambda t: t[(i + 1) // every - 1].float(),
+                               params["cross_layers"])
+            x = model._cross_apply(cp, x, image)
+    x = mods.layers.make_norm(model.cfg)[1](top["final_norm"], x)
+    return model._unembed(top, x)
 
 
 def _moe_cfg(mods, arch, reduce):
@@ -2874,6 +2918,246 @@ def phase_serve_moe(torch, mods, arch, *, reduce=False, device="cuda"):
                 dropped=drops)
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the rest of the zoo (Llama-3.2-11B-Vision: gated cross-attention
+# over a stub image; MusicGen-Large: 4 codebooks, full MHA at head dim 64),
+# both at full width and depth
+# ---------------------------------------------------------------------------
+
+ZOO = ("llama32_vision_11b", "musicgen_large")
+# Scored on an f32 copy of the params, streamed a layer at a time (an f32
+# copy of llama-3.2-vision-11b is 40.4 GB), pallas (the f32 flash route)
+# against xla; and served in f32 against a teacher-forced f32 forward:
+# only f32 rounding separates them.  llama-3.2-vision-11b serves in f32
+# at 2 of its 8 groups (10 layers, 2 cross layers): whole it would be
+# 40.4 GB of f32 params and two f32 passes over 8,316 tokens.
+ZOO_F32_ROW_RTOL = 1e-4
+ZOO_F32_SERVE_LAYERS = {"llama32_vision_11b": 10, "musicgen_large": None}
+
+
+def _gate_draw(torch, params, device, seed=1):
+    """The cross layers' gates drawn in [0.5, 1.5) from a seeded
+    generator, in place: at their zero init tanh(0) * out hides the whole
+    cross-attention from every check."""
+    if "cross_layers" in params:
+        gate = params["cross_layers"]["gate_cross"]
+        g = torch.Generator(device=device).manual_seed(seed)
+        gate.copy_(torch.rand(gate.shape, generator=g, device=device) + 0.5)
+    return params
+
+
+def _gated_serve(torch, mods):
+    """Within the block, the served vlm's params get their gates drawn
+    (``_gate_draw``) as ``serve.run`` makes them."""
+    def make(init):
+        def gated(self, gen, *, device=None):
+            params = init(self, gen, device=device)
+            return _gate_draw(torch, params, params["final_norm"]["scale"]
+                              .device)
+        return gated
+    return _patched(mods.vlm.VisionLM, "init", make)
+
+
+def _zoo_cfg(mods, arch, reduce):
+    cfg = mods.get_config(arch)
+    if reduce:
+        return dataclasses.replace(cfg.reduced(), num_layers=4), 96
+    return cfg, 4096
+
+
+def phase_score_zoo(torch, fa, mods, arch, *, reduce=False, device="cuda"):
+    """llama-3.2-vision-11b (group 4, D 128; 8 cross layers over the 1,601
+    stub image tokens, gates drawn nonzero) or musicgen-large (MHA at D
+    64, 4 codebooks a token) at full width and depth (bf16), scored on the
+    two 4,096-token streams under ``attn_impl="pallas"`` — one flash
+    launch per self layer (40, 48), each held against the plain version
+    on its own inputs; cross-attention runs ``sdpa``, as in the reference
+    — against ``attn_impl="xla"``: the losses, every token's logits in
+    bf16 and on an f32 copy of the params streamed a layer at a time.
+    Flash with the causal mask dropped must fail the bf16 logits check;
+    for the vlm, the gates set back to zero must fail the f32 one (or the
+    cross layers would not be seen)."""
+    cfg, seq = _zoo_cfg(mods, arch, reduce)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model_p = mods.build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    model_x = mods.build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = _gate_draw(torch, model_p.init(
+        torch.Generator(device=device).manual_seed(0)), device)
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device,
+                         cfg.num_audio_codebooks)
+    calls = []
+    with torch.inference_mode():
+        with _recording(fa, calls):
+            fa.LAUNCHES = 0
+            loss_p = float(model_p.loss(params, batch)[0])
+            launches = fa.LAUNCHES
+        loss_p2, t_p = _timed_loss(torch, model_p, params, batch, device)
+        loss_x, t_x = _timed_loss(torch, model_x, params, batch, device)
+        call_rel = _hold_path_calls(torch, fa, calls)
+        shapes = sorted({(tuple(c[0].shape), tuple(c[1].shape), c[3], c[4])
+                         for c in calls})
+        n_calls = len(calls)
+        del calls
+        logits_x = model_x.predict(params, batch)
+        bf16_rel = _logit_row_rel(model_p.predict(params, batch), logits_x)
+        with _no_causal(fa):
+            fault_rel = _logit_row_rel(model_p.predict(params, batch),
+                                       logits_x)
+        del logits_x
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        m32_p, m32_x = (mods.build_model(dataclasses.replace(
+            cfg, dtype="float32", attn_impl=impl)) for impl in ("pallas",
+                                                                "xla"))
+        logits_x = _forward_f32_streamed(torch, mods, m32_x, params,
+                                         batch["tokens"])
+        f32_rel = _logit_row_rel(_forward_f32_streamed(
+            torch, mods, m32_p, params, batch["tokens"]), logits_x)
+        gate_rel = None
+        if model_p.n_cross:
+            # the stub image is small (0.02 N(0, 1)-like), so what the
+            # cross layers add is held at f32 rounding, not bf16's
+            cross = dict(params["cross_layers"])
+            cross["gate_cross"] = torch.zeros_like(cross["gate_cross"])
+            gate_rel = _logit_row_rel(_forward_f32_streamed(
+                torch, mods, m32_p, dict(params, cross_layers=cross),
+                batch["tokens"]), logits_x)
+        del logits_x
+    rel = abs(loss_p - loss_x) / abs(loss_x)
+    n_tok = batch["tokens"].shape[0] * seq
+    print(f"[score] {cfg.name}, {cfg.num_layers} layers"
+          + (f" + {model_p.n_cross} cross layers over "
+             f"{cfg.num_image_tokens} stub image tokens" if model_p.n_cross
+             else f", {cfg.num_audio_codebooks} codebooks a token")
+          + f", loss on 2 x {seq} tokens, bf16: pallas {loss_p:.6f} "
+          f"({t_p:.1f} ms, second call; {n_tok / t_p * 1e3:.0f} tokens/s), "
+          f"xla {loss_x:.6f} ({t_x:.1f} ms); rel diff {rel:.2e} (rtol "
+          f"{SCORE_LOSS_RTOL:.0e}); flash launches {launches} at {shapes}")
+    print(f"[score] each flash call on the path vs plain: max row rel "
+          f"{call_rel:.3e} over {n_calls} calls (limit "
+          f"{BF16_ROW_RTOL['flash']:.0e}); logits, pallas vs xla, max token "
+          f"row rel: bf16 {bf16_rel:.3e} (limit {SCORE_LOGIT_ROW_RTOL:.0e}), "
+          f"f32 copy {f32_rel:.3e} (limit {ZOO_F32_ROW_RTOL:.0e})")
+    print(f"[control] {cfg.name} score, planted fault 'causal mask "
+          f"dropped': bf16 logits max token row rel {fault_rel:.3e}"
+          + (f"; gates set back to zero: f32 logits {gate_rel:.3e}"
+             if gate_rel is not None else ""))
+    check(loss_p2 == loss_p, "the pallas loss changed between calls")
+    check(math.isfinite(loss_p) and rel <= SCORE_LOSS_RTOL,
+          f"pallas loss {loss_p} vs xla {loss_x}: rel {rel:.2e}")
+    check(math.isfinite(bf16_rel) and bf16_rel <= SCORE_LOGIT_ROW_RTOL,
+          f"pallas logits vs xla: max token row rel {bf16_rel:.3e}")
+    check(math.isfinite(f32_rel) and f32_rel <= ZOO_F32_ROW_RTOL,
+          f"f32 logits, pallas vs xla: max token row rel {f32_rel:.3e}")
+    check(fault_rel > SCORE_LOGIT_ROW_RTOL, f"the planted fault passes the "
+          f"logits check ({fault_rel:.3e})")
+    check(gate_rel is None or gate_rel > ZOO_F32_ROW_RTOL,
+          f"zero gates pass the f32 logits check ({gate_rel}): the cross "
+          f"layers are not seen")
+    check(n_calls == cfg.num_layers, f"{n_calls} flash calls on the "
+          f"scoring path, not one per self layer ({cfg.num_layers})")
+    if device == "cuda":
+        check(launches == cfg.num_layers, f"the scoring forward launched "
+              f"flash {launches} times, not {cfg.num_layers}")
+        print(f"[score] peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return dict(launches=launches, loss_ms=t_p, xla_ms=t_x,
+                call_rel=call_rel, logit_rel=bf16_rel, f32_logit_rel=f32_rel)
+
+
+def _image_kv_ms(torch, mods, res):
+    """Device time of what every decode step recomputes in the vlm's cross
+    layers: the image tokens' K and V projections, all cross layers (the
+    reference keeps no cross K/V cache); (ms, its operation bound in ms)."""
+    model = mods.build_model(res.cfg)
+    b = res.tokens.shape[0]
+    attn = res.params["cross_layers"]["attn"]
+    with torch.inference_mode():
+        img = model.stub_image_embeds(b, device="cuda")
+
+        def kv():
+            for j in range(model.n_cross):
+                img @ attn["w_k"][j]
+                img @ attn["w_v"][j]
+        ms = device_ms(torch, kv, reps=3, trials=5)
+    ops = 2 * img.numel() * (attn["w_k"].shape[-1] + attn["w_v"].shape[-1]) \
+        * model.n_cross
+    return ms, ops / H100_BF16_FLOPS * 1e3
+
+
+def phase_serve_zoo(torch, mods, arch, *, reduce=False, device="cuda"):
+    """Serve at full width and depth through ``launch/serve.py``'s ``run``
+    (batch 4, prompt 2,048, 32 tokens, cache 4,096; the vlm's gates drawn
+    nonzero, audio tokens [B, L, 4]): prefill ms, decode ms a token beside
+    the weight-read bound, peak memory; the served logits held against a
+    teacher-forced forward in bf16 at the reference's 5e-2 and served in
+    f32 (``--dtype float32``; the vlm at 2 of its 8 groups) at f32
+    rounding; logits one step late must fail both.  A few more decode
+    steps run under ``torch.profiler``; for the vlm, the image K/V
+    projections each decode step recomputes are also timed alone."""
+    argv = ["--arch", arch, "--batch", "4", "--device", device]
+    argv += (["--prompt-len", "40", "--gen", "6", "--cache-len", "64"]
+             if reduce else ["--full", "--prompt-len", "2048", "--gen", "32",
+                             "--cache-len", "4096"])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with _gated_serve(torch, mods):
+        res, rel, late = _served_vs_forced(torch, mods, argv)
+        cfg = res.cfg
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else float("nan"))
+        check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size))
+                   .all()), "served tokens out of the vocabulary")
+        check(int(res.cache["pos"].max()) == res.prompts.shape[1]
+              + res.tokens.shape[1] - 2, "the cache does not hold the last "
+              "step")
+        weights = sum(t.numel() * t.element_size()
+                      for t in mods.tree_leaves(res.params))
+        bound_ms = weights / H100_BYTES_PER_S * 1e3
+        kv = (_image_kv_ms(torch, mods, res)
+              if device == "cuda" and "cross_layers" in res.params else None)
+        if device == "cuda":
+            decode_profile(torch, mods, res)
+        out = dict(prefill_ms=res.prefill_ms, decode_ms=res.decode_ms,
+                   peak_gib=peak, logit_rel=rel, decode_bound_ms=bound_ms,
+                   tokens_shape=list(res.tokens.shape))
+        del res
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        layers = ZOO_F32_SERVE_LAYERS[arch]
+        f32 = argv + ["--dtype", "float32"]
+        with (_served_cfg(mods, layers) if layers and not reduce
+              else contextlib.nullcontext()):
+            _, rel32, late32 = _served_vs_forced(torch, mods, f32)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[serve] {cfg.name}: prefill {out['prefill_ms']:.1f} ms, decode "
+          f"{out['decode_ms']:.2f} ms/token (weight-read bound "
+          f"{bound_ms:.2f} ms: {weights / 1e9:.1f} GB at 3.35 TB/s), peak "
+          f"memory {peak:.1f} GiB; tokens {out['tokens_shape']}; served "
+          f"logits vs the teacher-forced forward, max token row rel: bf16 "
+          f"{rel:.3e} (limit {SERVE_LOGIT_ROW_RTOL:.0e}), served in f32"
+          + (f" at {layers} layers" if layers and not reduce else "")
+          + f" {rel32:.3e} (limit {ZOO_F32_ROW_RTOL:.0e})")
+    if kv is not None:
+        out["image_kv_ms"], out["image_kv_bound_ms"] = kv
+        print(f"[serve] {cfg.name} decode: the image K/V projections of the "
+              f"cross layers, recomputed every step, take {kv[0]:.3f} ms "
+              f"alone ({kv[0] / out['decode_ms']:.1%} of a token's "
+              f"{out['decode_ms']:.2f} ms; operation bound {kv[1]:.3f} ms)")
+    print(f"[control] {cfg.name} serve, planted fault 'logits one step "
+          f"late': bf16 {late:.3e}, f32 {late32:.3e}")
+    check(math.isfinite(rel) and rel <= SERVE_LOGIT_ROW_RTOL,
+          f"served logits vs the teacher-forced forward: {rel:.3e}")
+    check(math.isfinite(rel32) and rel32 <= ZOO_F32_ROW_RTOL,
+          f"f32 served logits vs the teacher-forced forward: {rel32:.3e}")
+    check(late > SERVE_LOGIT_ROW_RTOL and late32 > ZOO_F32_ROW_RTOL,
+          "the checks cannot see logits one step late")
+    out["f32_logit_rel"] = rel32
+    return out
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import (ExperimentConfig, FLConfig,
@@ -2889,7 +3173,7 @@ def import_port():
     from repro_torch.kernels.stale_aggregate import masked_aggregate_tree
     from repro_torch.launch import serve, train, train_e2e
     from repro_torch.models import build_model
-    from repro_torch.models import hybrid, layers, ssm
+    from repro_torch.models import audio, hybrid, layers, ssm, vlm
     from repro_torch.obs import Tracer, validate_rows
     from repro_torch.optim import clip_by_global_norm, make_optimizer
     from repro_torch.optim.optimizers import adam_update_plain
@@ -2977,6 +3261,13 @@ def main():
         timed(f"serve {arch} ({MOE_LAYERS[arch]} layers)", phase_serve_moe,
               torch, mods, arch)
         torch.cuda.empty_cache()
+    zoo = {}
+    for arch in ZOO:
+        score = timed(f"score {arch}", phase_score_zoo, torch, fa, mods, arch)
+        torch.cuda.empty_cache()
+        zoo[arch] = dict(score=score, serve=timed(
+            f"serve {arch}", phase_serve_zoo, torch, mods, arch))
+        torch.cuda.empty_cache()
     adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
                               agg, mods)
     check("jax" not in sys.modules and not any(
@@ -3037,7 +3328,16 @@ def main():
              "deepseek_v2_launches": deepseek["launches"],
              "shape": list(FLASH_MOE_SHAPE), "dtype": "bfloat16",
              **attn[("flash", torch.bfloat16, FLASH_MOE_SHAPE)],
-             "float32": attn[("flash", torch.float32, FLASH_MOE_SHAPE)]}},
+             "float32": attn[("flash", torch.float32, FLASH_MOE_SHAPE)]},
+         "zoo": {
+             arch: {"path": f"{arch} scoring forward (full depth), one "
+                            f"launch per self layer; cross-attention runs "
+                            f"sdpa, as in the JAX package",
+                    "launches": zoo[arch]["score"]["launches"],
+                    "shape": list(shape), "dtype": "bfloat16",
+                    **attn[("flash", torch.bfloat16, shape)],
+                    "float32": attn[("flash", torch.float32, shape)]}
+             for arch, shape in FLASH_ZOO_SHAPES.items()}},
         {"name": "decode_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:65",

@@ -4,11 +4,10 @@ part of the LM zoo.
 The LM configs are literal copies of the JAX package's
 ``configs/<arch>.py`` files (``yi_6b``, ``mamba2_370m``, ``starcoder2_15b``,
 ``nemotron4_15b``, ``deepseek_67b``, ``recurrentgemma_2b``,
-``mixtral_8x22b``, ``deepseek_v2_236b``).  The rest of the zoo
-(``llama32_vision_11b``, ``musicgen_large``) is not ported yet; asking for
-one raises ``NotImplementedError`` (ROADMAP queue 1, model zoo).  The
-reference's hyphenated aliases (``nemotron-4-15b``, ``mixtral-8x22b``,
-``deepseek-v2-236b``, ...) name the same configs.
+``mixtral_8x22b``, ``deepseek_v2_236b``, ``llama32_vision_11b``,
+``musicgen_large``): the whole zoo.  The reference's hyphenated aliases
+(``nemotron-4-15b``, ``mixtral-8x22b``, ``llama-3.2-vision-11b``, ...) name
+the same configs.
 """
 from __future__ import annotations
 
@@ -177,9 +176,45 @@ CONFIGS = {
         long_context_window=4096,
         source="arXiv:2405.04434",
     ),
+    # Llama-3.2-11B-Vision — text decoder w/ cross-attn image layers
+    # (vision frontend stubbed).  [hf:meta-llama/Llama-3.2-11B-Vision]
+    "llama32_vision_11b": ModelConfig(
+        name="llama-3.2-vision-11b",
+        family="vlm",
+        num_layers=40,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        d_ff=14336,
+        vocab_size=128256,
+        max_seq_len=131072,
+        attention="gqa",
+        rope_theta=5e5,
+        activation="silu",
+        cross_attn_every=5,         # 8 cross-attention layers over 40 self layers
+        num_image_tokens=1601,      # 1 tile × (40×40 patches + 1 cls)
+        long_context_window=4096,
+        source="hf:meta-llama/Llama-3.2-11B-Vision",
+    ),
+    # MusicGen-Large — decoder-only over EnCodec tokens (codec stubbed).
+    # [arXiv:2306.05284]
+    "musicgen_large": ModelConfig(
+        name="musicgen-large",
+        family="audio",
+        num_layers=48,
+        d_model=2048,
+        num_heads=32,
+        num_kv_heads=32,            # full MHA
+        d_ff=8192,
+        vocab_size=2048,            # per-codebook EnCodec codebook size
+        max_seq_len=32768,
+        attention="gqa",
+        activation="gelu",
+        num_audio_codebooks=4,
+        long_context_window=4096,
+        source="arXiv:2306.05284",
+    ),
 }
-
-_LM_ZOO = ("musicgen_large", "llama32_vision_11b")
 
 # the reference's hyphenated ids that the rule below does not map
 ALIASES = {"nemotron-4-15b": "nemotron4_15b",
@@ -190,8 +225,4 @@ def get_config(arch: str) -> ModelConfig:
     name = ALIASES.get(arch, arch.replace("-", "_").replace(".", ""))
     if name in CONFIGS:
         return CONFIGS[name]
-    if name in _LM_ZOO or arch in _LM_ZOO:
-        raise NotImplementedError(
-            f"{arch!r} belongs to the LM zoo, not ported yet "
-            f"(ROADMAP queue 1, model zoo)")
     raise ValueError(f"unknown arch {arch!r}; have {sorted(CONFIGS)}")

@@ -10,9 +10,12 @@ prompts (one ``torch.Generator`` for both).  The PFL twist:
 prompts (next-token targets) before serving, through ``core/perfed.adapt``
 — the deployment story of Per-FedAvg.
 
-Any ported LM family serves (``--arch`` yi_6b, mamba2_370m,
-recurrentgemma_2b, starcoder2_15b, ...): the model's own ``init_cache``,
-``prefill`` and ``decode_step`` carry the family's state.
+Every LM family serves (``--arch`` yi_6b, mamba2_370m, recurrentgemma_2b,
+mixtral_8x22b, llama32_vision_11b, musicgen_large, ...): the model's own
+``init_cache``, ``prefill`` and ``decode_step`` carry the family's state.
+The vlm family serves with the stub image embeddings; audio prompts and
+generated tokens are [B, L, K], one token per codebook, and the logits
+[B, gen, K, V].
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --reduce \
@@ -72,14 +75,15 @@ def run(argv=None) -> types.SimpleNamespace:
         cfg = cfg.reduced()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    if cfg.family == "audio":
-        raise NotImplementedError("the audio family is not ported yet "
-                                  "(ROADMAP queue 1, model zoo)")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen)
     b, lp = args.batch, args.prompt_len
-    prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
+    # audio streams carry one token per codebook: [B, L, K]
+    audio = cfg.family == "audio"
+    tok_shape = (b, lp, cfg.num_audio_codebooks) if audio else (b, lp)
+    step_shape = (b, 1, -1) if audio else (b, 1)
+    prompts = torch.randint(0, cfg.vocab_size, tok_shape, generator=gen,
                             device=device, dtype=torch.int32)
 
     if args.personalize:
@@ -92,7 +96,8 @@ def run(argv=None) -> types.SimpleNamespace:
         _sync(device)
         t0 = time.perf_counter()
         logits, cache = model.prefill(params, prompts, args.cache_len)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32).reshape(b, 1)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32) \
+            .reshape(step_shape)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
@@ -100,7 +105,8 @@ def run(argv=None) -> types.SimpleNamespace:
         t0 = time.perf_counter()
         for i in range(args.gen - 1):
             logits, cache = model.decode_step(params, cache, toks, lp + i)
-            toks = torch.argmax(logits, dim=-1).to(torch.int32).reshape(b, 1)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32) \
+                .reshape(step_shape)
             out_tokens.append(toks)
             out_logits.append(logits)
         _sync(device)

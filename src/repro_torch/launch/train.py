@@ -119,11 +119,15 @@ def run_fl(cfg, args, device):
 
 
 def lm_batch(corpus: np.ndarray, rng: np.random.Generator, bsz: int,
-             seq: int, device) -> dict:
+             seq: int, device, codebooks: int = 0) -> dict:
     """``bsz`` random windows of the corpus → {"tokens", "targets"} [bsz,
-    seq] int32 on ``device`` (targets = tokens shifted by one)."""
+    seq] int32 on ``device`` (targets = tokens shifted by one); with
+    ``codebooks`` K > 0 (the audio family) each token is tiled over the K
+    codebooks, [bsz, seq, K], as the reference does."""
     starts = rng.integers(0, len(corpus) - seq - 1, size=bsz)
     win = np.stack([corpus[s:s + seq + 1] for s in starts])
+    if codebooks:
+        win = np.repeat(win[..., None], codebooks, axis=-1)
     win = torch.from_numpy(win).to(device)
     return {"tokens": win[:, :-1], "targets": win[:, 1:]}
 
@@ -135,9 +139,6 @@ def run_scale(cfg, args, device):
     from repro_torch.optim import make_optimizer
 
     mcfg = cfg.model.reduced() if args.reduce else cfg.model
-    if mcfg.family == "audio":
-        raise NotImplementedError("the audio family is not ported yet "
-                                  "(ROADMAP queue 1, model zoo)")
     model = build_model(mcfg)
     optimizer = make_optimizer("sgd")
     step_fn = semi_sync.make_train_step(model, replace(cfg, model=mcfg),
@@ -150,7 +151,8 @@ def run_scale(cfg, args, device):
     seq, bsz = 64, 8
     t0 = time.time()
     for step in range(args.steps):
-        batches = {k: lm_batch(corpus, rng, bsz, seq, device)
+        batches = {k: lm_batch(corpus, rng, bsz, seq, device,
+                               mcfg.num_audio_codebooks)
                    for k in ("inner", "outer", "hessian")}
         state, metrics = step_fn(state, batches)
         if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:

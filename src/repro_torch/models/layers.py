@@ -29,8 +29,8 @@ for step.  Two differences, again without changing a result:
   reference's sorted updates), where a scatter-add on the card would
   use atomics and change bf16 outputs from run to run.
 
-Cross-attention and the expert-parallel ``moe_apply_ep`` are not ported
-yet: ``attention_apply`` and ``moe_apply`` raise on them.
+The expert-parallel ``moe_apply_ep`` is not ported yet: ``moe_apply``
+raises on it.
 """
 from __future__ import annotations
 
@@ -46,7 +46,6 @@ from repro_torch.config import ModelConfig
 
 Params = Dict[str, Any]
 
-NOT_PORTED = "not ported yet (ROADMAP queue 1, model zoo)"
 NO_MESH = ("not ported yet: it needs the device mesh of ROADMAP queue 1, "
            "item 5 (SPMD)")
 
@@ -284,25 +283,32 @@ def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
 
     * train/prefill: ``cache is None`` or to-be-filled; ``x`` is [B, L, d].
     * decode:        ``cache`` holds past K/V; ``x`` is [B, 1, d].
+    * cross:         ``kv_input`` [B, Lk, d] supplies the K/V source: no
+      RoPE, no causal mask, no window, and always ``sdpa`` (the flash
+      kernel takes one L for q and k), as in the reference.
 
     Returns (out [B, L, d], the cache written in place, or None).
     """
-    if kv_input is not None:
-        raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
     b, lq, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
 
     q = (x @ params["w_q"]).reshape(b, lq, hq, hd)
-    k = (x @ params["w_k"]).reshape(b, lq, hkv, hd)
-    v = (x @ params["w_v"]).reshape(b, lq, hkv, hd)
+    src = kv_input if kv_input is not None else x
+    lk = src.shape[1]
+    k = (src @ params["w_k"]).reshape(b, lk, hkv, hd)
+    v = (src @ params["w_v"]).reshape(b, lk, hkv, hd)
 
-    if cfg.attention != "none":
+    if kv_input is None and cfg.attention != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     q_pos = torch.broadcast_to(positions, (b, lq))
-    if cache is not None:
+    if kv_input is not None:
+        # dense cross-attention: every query sees every source token
+        k_pos = torch.zeros((b, lk), dtype=torch.int32, device=x.device)
+        causal, window = False, 0
+    elif cache is not None:
         _write_ring(cache, positions, k=k, v=v)
         if lq == 1:
             # decode: attend against the cache contents
@@ -315,7 +321,7 @@ def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         k_pos = q_pos
 
-    if cfg.attn_impl == "pallas" and cache is None:
+    if cfg.attn_impl == "pallas" and cache is None and kv_input is None:
         from repro_torch.kernels import flash_attention as fa
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
     else:

@@ -1,18 +1,20 @@
 """Model family registry: ``ModelConfig.family`` → builder.
 
-The ``small`` family (the paper's own models), the ``dense`` and ``moe``
-transformers, the ``ssm`` family (Mamba-2) and the ``hybrid`` family
-(RecurrentGemma) are ported; ``vlm`` and ``audio`` raise
-``NotImplementedError`` (ROADMAP queue 1, model zoo).  ``moe_impl`` is the
-reference's argument; the transformer takes it, the other families ignore
-it."""
+Every family of the reference is ported: ``small`` (the paper's own
+models), the ``dense`` and ``moe`` transformers, ``ssm`` (Mamba-2),
+``hybrid`` (RecurrentGemma), ``vlm`` (Llama-3.2-Vision's cross-attention
+decoder) and ``audio`` (MusicGen's multi-codebook decoder).  ``moe_impl``
+is the reference's argument; the transformer and its vlm and audio
+subclasses take it, the other families ignore it."""
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import small
+from repro_torch.models.audio import AudioLM
 from repro_torch.models.hybrid import RecurrentGemmaLM
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.vlm import VisionLM
 
 _SMALL = {"mnist_dnn": small.MnistDNN, "lenet5": small.LeNet5,
           "char_lstm": small.CharLSTM}
@@ -25,24 +27,14 @@ def _small(cfg, moe_impl="gather"):
     raise ValueError(f"unknown small model {cfg.name!r}")
 
 
-def _transformer(cfg, moe_impl="gather"):
-    return TransformerLM(cfg, moe_impl)
-
-
-def _not_ported(cfg, moe_impl="gather"):
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet "
-        f"(ROADMAP queue 1, model zoo)")
-
-
-# the JAX package's family names; the unported ones raise when built
+# the JAX package's family names
 MODEL_FAMILIES = {
-    "dense": _transformer,
-    "moe": _transformer,
+    "dense": TransformerLM,
+    "moe": TransformerLM,
     "ssm": lambda cfg, moe_impl="gather": Mamba2LM(cfg),
     "hybrid": lambda cfg, moe_impl="gather": RecurrentGemmaLM(cfg),
-    "vlm": _not_ported,
-    "audio": _not_ported,
+    "vlm": VisionLM,
+    "audio": AudioLM,
     "small": _small,
 }
 

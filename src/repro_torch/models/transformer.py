@@ -1,25 +1,32 @@
 """Decoder-only transformer stack: dense (llama-style GQA/RoPE, sliding
-window) and MoE (Mixtral: GQA + mixture of experts; DeepSeek-V2: MLA +
-routed and shared experts).
+window), MoE (Mixtral: GQA + mixture of experts; DeepSeek-V2: MLA +
+routed and shared experts) and the gated cross-attention interleave of the
+vlm family (Llama-3.2-Vision).
 
-The port of the JAX package's ``models/transformer.py`` for ``family``
-"dense" and "moe".  Params keep the reference's names and its stacked
-leading layer axis (``params["layers"][name]`` is ``[num_layers, ...]``,
-the experts ``params["layers"]["moe"]`` likewise), so the JAX package's
+The port of the JAX package's ``models/transformer.py``.  Params keep the
+reference's names and its stacked leading layer axis
+(``params["layers"][name]`` is ``[num_layers, ...]``, the experts
+``params["layers"]["moe"]`` likewise, the cross layers
+``params["cross_layers"][name]`` ``[n_cross, ...]``), so the JAX package's
 params carried over as numpy (``utils.tree.from_numpy_tree``) are the
-port's params.  The reference scans the stack with ``lax.scan``; here a
-Python loop walks the layer axis, taking views.  ``cfg.remat``
+port's params.  The reference scans the stack with ``lax.scan`` (over
+groups of ``cross_attn_every`` self layers and one cross layer when the
+model has cross layers); here a Python loop walks the layer axis, taking
+views, and runs cross layer ``j`` after self layer ``(j + 1) *
+cross_attn_every - 1``, the same order.  The self layers keep their
+indices into the cache; the cross layers have none.  ``cfg.remat``
 (activation checkpointing) changes memory, not results, and is not
-applied: this slice serves and scores, it does not train at full width.
+applied: the port serves and scores at full width, it does not train
+there.
 
-With ``cfg.attn_impl == "pallas"`` a GQA call without a cache
-(``forward``, ``loss``, ``predict``) runs attention through the flash
-kernel (``kernels/flash_attention.py``); prefill and decode go through
-``sdpa``, and MLA always does, as in the reference.  ``prefill`` and
-``decode_step`` write the cache in place and return it.
+With ``cfg.attn_impl == "pallas"`` a GQA self-attention call without a
+cache (``forward``, ``loss``, ``predict``) runs through the flash kernel
+(``kernels/flash_attention.py``); prefill, decode, cross-attention and MLA
+go through ``sdpa``, as in the reference.  ``prefill`` and ``decode_step``
+write the cache in place and return it.
 
-Cross-attention (the vlm family) is not ported yet (ROADMAP queue 1), nor
-is ``moe_impl="ep"`` (queue 1, item 5: it needs a device mesh).
+``moe_impl="ep"`` is not ported yet (ROADMAP queue 1, item 5: it needs a
+device mesh).
 """
 from __future__ import annotations
 
@@ -46,12 +53,15 @@ class TransformerLM:
     """
 
     def __init__(self, cfg: ModelConfig, moe_impl: str = "gather"):
-        if cfg.cross_attn_every:
-            raise NotImplementedError(f"cross-attention is {L.NOT_PORTED}")
         self.cfg = cfg
         self.moe_impl = moe_impl
         self.is_moe = cfg.moe is not None
         self.is_mla = cfg.attention == "mla"
+        self.n_cross = (cfg.num_layers // cfg.cross_attn_every
+                        if cfg.cross_attn_every else 0)
+        if self.n_cross and cfg.num_layers % cfg.cross_attn_every:
+            raise ValueError(f"{cfg.num_layers} layers do not group by "
+                             f"cross_attn_every={cfg.cross_attn_every}")
         if self.is_moe and moe_impl == "ep":
             raise NotImplementedError(f"moe_impl='ep' is {L.NO_MESH}")
 
@@ -76,11 +86,22 @@ class TransformerLM:
             layer["moe"] = L.moe_init(gen, cfg, **kw)
         else:
             layer.update(L.mlp_init(gen, cfg, **kw))
-        return {
+        params = {
             "embedding": L.embedding_init(gen, cfg, device=device),
             "final_norm": norm_init(cfg.d_model, dt, device=device),
             "layers": layer,
         }
+        if self.n_cross:
+            kw = dict(device=device, lead=(self.n_cross,))
+            params["cross_layers"] = {
+                "norm_cross": norm_init(cfg.d_model, dt, **kw),
+                "attn": L.attention_init(gen, cfg, **kw),
+                # zero-init gated residual: a new cross layer starts as
+                # the identity
+                "gate_cross": torch.zeros(self.n_cross, dtype=dt,
+                                          device=device),
+            }
+        return params
 
     # ---------------------------------------------------------- layers ----
     def _layer_apply(self, p: Params, x: torch.Tensor,
@@ -107,6 +128,18 @@ class TransformerLM:
             return x + ffn_out, aux
         return x + L.mlp_apply(p, h, cfg), None
 
+    def _cross_apply(self, p: Params, x: torch.Tensor, kv: torch.Tensor
+                     ) -> torch.Tensor:
+        """One gated cross-attention layer over ``kv`` [B, Lk, d]:
+        x + tanh(gate) * attention."""
+        _, norm = L.make_norm(self.cfg)
+        h = norm(p["norm_cross"], x)
+        out, _ = L.attention_apply(
+            p["attn"], h, cfg=self.cfg,
+            positions=torch.zeros((1,), dtype=torch.int32, device=x.device),
+            kv_input=kv, causal=False)
+        return x + torch.tanh(p["gate_cross"]).to(x.dtype) * out
+
     # --------------------------------------------------------- forward ----
     def forward(self, params: Params, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
@@ -115,17 +148,19 @@ class TransformerLM:
                 window: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
         """Returns (logits [B, L, V], the cache written in place or None,
-        aux_loss)."""
-        if image_embeds is not None:
-            raise NotImplementedError(f"cross-attention is {L.NOT_PORTED}")
+        aux_loss).  A model with cross layers needs ``image_embeds`` [B,
+        N_img, d]; the others ignore it, as in the reference."""
         cfg = self.cfg
+        if self.n_cross and image_embeds is None:
+            raise ValueError("a forward with cross layers needs "
+                             "image_embeds")
         lq = tokens.shape[1]
         if positions is None:
             positions = torch.arange(lq, dtype=torch.int32,
                                      device=tokens.device)
         win = cfg.sliding_window if window is None else window
 
-        x = L.embed(params["embedding"], tokens)
+        x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
@@ -134,10 +169,20 @@ class TransformerLM:
             x, a = self._layer_apply(lp, x, positions, lc, win)
             if a is not None:
                 aux = aux + a
+            if self.n_cross and (i + 1) % cfg.cross_attn_every == 0:
+                j = (i + 1) // cfg.cross_attn_every - 1
+                x = self._cross_apply(
+                    tree_map(lambda a: a[j], params["cross_layers"]), x,
+                    image_embeds)
 
         x = L.make_norm(cfg)[1](params["final_norm"], x)
-        logits = L.unembed(params["embedding"], x)
-        return logits, cache, aux
+        return self._unembed(params, x), cache, aux
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return L.embed(params["embedding"], tokens)
+
+    def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return L.unembed(params["embedding"], x)
 
     # ------------------------------------------------------------ loss ----
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], rng=None

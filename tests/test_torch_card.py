@@ -164,6 +164,9 @@ FLASH_CASES = [
     # the causal mask), at a tile multiple and at a ragged L
     (1, 12, 2, 1024, 128, True, 1024),
     (2, 12, 2, 1000, 128, True, 1000),
+    # MusicGen's full MHA (group 1) at D 64 on the wgmma route, L past
+    # 1,024 and ragged
+    (2, 4, 4, 1100, 64, True, 0),
 ]
 
 ROUTE = {16: "mma-sync", 32: "mma-sync", 64: "wgmma-tma", 128: "wgmma-tma",
@@ -679,3 +682,44 @@ def test_mobile_run_on_card_matches_cpu():
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
     assert card.cloud_rounds == 2 and card.ue_departures > 0
     assert card.label_drifts > 0
+
+
+# served logits against a teacher-forced forward over prompt + generated
+# tokens, row by row: the reference's 5e-2 in bf16
+# (tests/test_decode_consistency.py), f32 rounding alone in float32
+SERVE_ROW_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "musicgen_large"])
+def test_served_logits_match_teacher_forcing_on_card(arch, dtype,
+                                                     monkeypatch):
+    """The reduced vlm (cross layers over the stub image, gates set
+    nonzero: a zero gate hides the cross-attention) and audio (4
+    codebooks) served on the card through ``launch/serve.py``: 40 prompt
+    tokens, 6 generated, cache 64."""
+    _need_card()
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.vlm import VisionLM
+
+    init = VisionLM.init
+
+    def gated_init(self, gen, *, device=None):
+        params = init(self, gen, device=device)
+        gate = params["cross_layers"]["gate_cross"]
+        gate.copy_(torch.linspace(0.5, 1.5, gate.numel()))
+        return params
+
+    monkeypatch.setattr(VisionLM, "init", gated_init)
+    res = serve.run(["--arch", arch, "--batch", "2", "--prompt-len", "40",
+                     "--gen", "6", "--cache-len", "64", "--dtype", dtype])
+    if res.cfg.cross_attn_every:
+        assert float(res.params["cross_layers"]["gate_cross"].min()) >= 0.5
+    assert res.tokens.device.type == "cuda"
+    with torch.inference_mode():
+        toks = torch.cat([res.prompts, res.tokens[:, :-1]], dim=1)
+        want = build_model(res.cfg).predict(res.params, {"tokens": toks})
+    want = want[:, 39:].float()
+    rel = (res.logits.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= SERVE_ROW_RTOL[dtype]

@@ -8,7 +8,9 @@ and int32 leaves, nested dicts and a list; every comparison is bitwise.
 The training launchers' ``--ckpt-dir`` writes a file that loads back (and
 loads in the reference, into the reference model's own params).  The MoE
 family's reduced params (Mixtral, DeepSeek-V2: nested ``moe`` dicts, a
-float32 router beside bfloat16 expert banks) cross both ways bitwise.
+float32 router beside bfloat16 expert banks), and the vlm and audio
+families' (stacked cross layers with their gates; per-codebook embeddings
+and heads) cross both ways bitwise.
 """
 import json
 
@@ -195,13 +197,51 @@ def test_moe_params_cross_both_ways_bitwise(tmp_path, arch):
         assert str(moe["router"].dtype).endswith("float32")
         assert str(moe["moe_gate"].dtype).endswith("bfloat16")
 
+    got = _cross_both_ways(tmp_path, ref_params, port_params)
+    assert got["layers"]["moe"]["router"].dtype == torch.float32
+
+
+def _cross_both_ways(tmp_path, ref_params, port_params):
+    """The reference's params saved by the reference load in the port
+    (with and without ``like``) and the port's saved by the port load in
+    the reference, bitwise; returns the port's load of the reference's
+    file."""
     fname = ref_ckpt.save_checkpoint(str(tmp_path / "ref"), ref_params,
                                      step=1)
     _same_bits(ckpt.load_checkpoint(fname), ref_params)
     got = ckpt.load_checkpoint(fname, like=port_params)
-    assert got["layers"]["moe"]["router"].dtype == torch.float32
     _same_bits(got, ref_params)
 
     fname = ckpt.save_checkpoint(str(tmp_path / "port"), port_params, step=1)
     _same_bits(ref_ckpt.load_checkpoint(fname, like=ref_params), port_params)
     _same_bits(ckpt.load_checkpoint(fname, like=port_params), port_params)
+    return got
+
+
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "musicgen_large"])
+def test_zoo_params_cross_both_ways_bitwise(tmp_path, arch):
+    """The vlm family's ``cross_layers`` (leading axis n_cross, one bf16
+    gate a layer, drawn nonzero here: a zero gate would hold nothing) and
+    the audio family's per-codebook [K, ...] embedding and heads."""
+    ref_model = ref_build_model(ref_get_config(arch).reduced())
+    port_model = build_model(get_config(arch).reduced())
+    ref_params = ref_model.init(jax.random.PRNGKey(4))
+    port_params = port_model.init(torch.Generator().manual_seed(4))
+    if arch == "musicgen_large":
+        want = {"tok_embed": (4, 512, 256), "lm_head": (4, 256, 512)}
+        for tree in (ref_params, port_params):
+            assert {k: tuple(v.shape) for k, v in
+                    tree["embedding"].items()} == want
+    else:
+        gates = np.random.default_rng(5).uniform(0.5, 1.5, size=(1,))
+        ref_params["cross_layers"]["gate_cross"] = jnp.asarray(
+            gates, jnp.bfloat16)
+        port_params["cross_layers"]["gate_cross"] = torch.tensor(
+            -gates, dtype=torch.bfloat16)
+        for tree in (ref_params, port_params):
+            assert sorted(tree["cross_layers"]) == ["attn", "gate_cross",
+                                                    "norm_cross"]
+            assert tuple(tree["cross_layers"]["attn"]["w_q"].shape) == \
+                (1, 256, 256)
+    got = _cross_both_ways(tmp_path, ref_params, port_params)
+    assert all(x.dtype == torch.bfloat16 for x in jax.tree.leaves(got))

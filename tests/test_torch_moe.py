@@ -275,7 +275,8 @@ def hold_full_width_layout(arch, n_params):
     assert [(tuple(x.shape), str(x.dtype)[6:]) for x in tree_leaves(mine)] \
         == [(tuple(x.shape), str(x.dtype)) for x in tree_leaves(want)]
     assert sum(x.numel() for x in tree_leaves(mine)) == n_params
-    assert mine["layers"]["moe"]["router"].dtype == torch.float32
+    if "moe" in mine["layers"]:
+        assert mine["layers"]["moe"]["router"].dtype == torch.float32
     want_cache = jax.eval_shape(lambda: ref.init_cache(4, 4096))
     cache = model.init_cache(4, 4096, device="meta")
     assert tree_paths(cache) == tree_paths(want_cache)
@@ -295,7 +296,7 @@ def run_serve(arch, capsys):
     assert f"arch={get_config(arch).name}-smoke" in out
     assert "sample tokens:" in out and "decode:" in out
     res = serve.run(argv)
-    assert res.tokens.shape == (2, 5)
+    assert res.tokens.shape[:2] == (2, 5)
     assert int(res.cache["pos"].max()) == 12 + 5 - 2
     return res
 

@@ -214,5 +214,3 @@ def test_unported_parts_of_the_dense_stack_raise():
         "mixtral_8x22b").reduced().moe)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         build_model(moe_cfg, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(dataclasses.replace(port_cfg, cross_attn_every=2))
