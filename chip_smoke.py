@@ -3158,6 +3158,413 @@ def phase_serve_zoo(torch, mods, arch, *, reduce=False, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the SPMD layer — DTensor state on a world-1 NCCL mesh, the
+# expert-parallel MoE, and the dry run on fake production meshes
+# ---------------------------------------------------------------------------
+
+# the dry run's production-mesh cases: (arch, shape, mesh, moe impl)
+DRYRUN_CASES = (("yi_6b", "train_4k", "single_pod", "gather"),
+                ("yi_6b", "train_4k", "multi_pod", "gather"),
+                ("mixtral_8x22b", "train_4k", "single_pod", "ep"),
+                ("llama32_vision_11b", "decode_32k", "single_pod", "gather"))
+DRYRUN_TIMEOUT_S = 600
+# π of the two rounds: the same two cohorts twice, so the second round's
+# Eq. 8 applies the gradients the first one buffered
+SPMD_MASKS = ([1.0, 1.0, 0.0, 0.0], [1.0, 1.0, 0.0, 0.0])
+SPMD_MOE_LAYERS = 2
+# EP against gather: the JAX package's own limits (tests/test_moe_ep.py)
+EP_ROW_RTOL, EP_AUX_ATOL = 1e-4, 1e-5
+
+
+def start_dryrun(out_dir):
+    """Each production-mesh case in its own process (the fake process
+    group cannot share a process with NCCL's), all at once, off the card."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh, impl in DRYRUN_CASES:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--moe-impl", impl,
+               "--out", out_dir, "--tag", "chip"]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True,
+                                       env=env), (arch, shape, mesh, impl)))
+    return procs
+
+
+def finish_dryrun(procs, out_dir, smi, t_start):
+    """Wait for the dry-run processes (killing any left on a failure) and
+    print each record on one line."""
+    recs = []
+    try:
+        for proc, (arch, shape, mesh, impl) in procs:
+            left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                 - t_start))
+            try:
+                _, err = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                check(False, f"dry run {arch} {shape} {mesh} took more than "
+                      f"{DRYRUN_TIMEOUT_S} s")
+            check(proc.returncode == 0, f"dry run {arch} {shape} {mesh} "
+                  f"failed:\n{err[-3000:]}")
+            with open(os.path.join(out_dir, f"chip_{arch}_{shape}_"
+                                   f"{mesh.split('_')[0]}.json")) as f:
+                rec = json.load(f)
+            check(rec["status"] == "ok" and rec["flops"] > 0,
+                  f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
+            coll = rec["collectives"]["bytes_by_kind"]
+            rf = rec["roofline"]
+            print(f"[dryrun] {arch} {shape} {mesh} (moe {impl}), "
+                  f"{rec['n_devices']} ranks, one rank: args "
+                  f"{rec['memory']['argument_bytes']} B (params "
+                  f"{rec['memory']['param_bytes']} B), FLOPs "
+                  f"{rec['flops']:.4e}, bytes accessed "
+                  f"{rec['bytes_accessed']:.4e}, collectives "
+                  f"{json.dumps(coll)}; roofline on H100 SXM5 rates: compute "
+                  f"{rf['compute_s']:.4e} s, memory {rf['memory_s']:.4e} s, "
+                  f"collective {rf['collective_s']:.4e} s ({rf['dominant']}); "
+                  f"{rec['total_s']} s on the host [{smi}]")
+            recs.append(rec)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return recs
+
+
+def _nccl_world(torch):
+    """A process group of one rank on NCCL (any free port on localhost)."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    return dist
+
+
+def _last_eq8(agg):
+    """Wrap Eq. 8's flat entry point to keep a copy of the last launch's
+    inputs (the launch count stays the wrapper's own)."""
+    last = {}
+    orig = agg.stale_aggregate_flat
+
+    def recording(params, buffers, mask, *, beta):
+        if params.is_cuda:
+            last.clear()
+            last["args"] = (params.clone(), buffers.clone(), mask.clone(),
+                            float(beta))
+        return orig(params, buffers, mask, beta=beta)
+
+    agg.stale_aggregate_flat = recording
+    return last, orig
+
+
+def hold_eq8_spmd(torch, agg, args):
+    """Eq. 8 against its plain version on the mesh path's own last launch;
+    the check must reject the plain version with one arriving cohort's
+    weight dropped.  Timed once beside the plain version and the bound."""
+    p, buf, mask, beta = args
+    n, c = int(p.shape[0]), int(buf.shape[0])
+    got = agg.stale_aggregate_flat(p, buf, mask, beta=beta)
+    want = agg.stale_aggregate_plain(p, buf, mask, beta=beta)
+    tol = 1e-6 * (1.0 + float(p.abs().max()))
+    err = float((got - want).abs().max())
+    check(math.isfinite(err) and err <= tol,
+          f"spmd Eq. 8 at N={n} C={c}: {err} > {tol}")
+    bad = mask.clone()
+    bad[int(torch.nonzero(mask)[0])] = 0.0
+    fault = float((got - agg.stale_aggregate_plain(p, buf, bad, beta=beta))
+                  .abs().max())
+    check(fault > tol, f"spmd Eq. 8: the check accepts a planted fault "
+          f"({fault} <= {tol})")
+    t_kernel = device_ms(torch, lambda: agg.stale_aggregate_flat(
+        p, buf, mask, beta=beta), reps=5, trials=5)
+    t_plain = device_ms(torch, lambda: agg.stale_aggregate_plain(
+        p, buf, mask, beta=beta), reps=2, trials=3)
+    bound, by = _bound((c + 2) * n * 4 + c * 4, 2 * c * n + n,
+                       H100_F32_FLOPS)
+    return dict(n=n, c=c, max_abs_err=err, fault_err=fault, ms=t_kernel,
+                plain_ms=t_plain, bound_ms=bound, bound_by=by)
+
+
+def _peak_base(torch, device):
+    """Bytes allocated now, the peak counter reset (CUDA only)."""
+    if device != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_above(torch, device, base):
+    """GiB the peak rose above ``base`` since the reset."""
+    if device != "cuda":
+        return float("nan")
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def same_bits(torch, a, b):
+    """Bitwise equality: the same dtype, shape and bit patterns (a NaN
+    equals a NaN of the same bits, as ``torch.equal`` would not have it)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    view = as_int[a.element_size()]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def _spmd_rounds(torch, mods, step, state, corpora, *, bsz, seq, device,
+                 mesh=None, rules=None):
+    """``SPMD_MASKS``' rounds from ``state``: (state, seconds a round, a
+    copy of the buffers after the first round)."""
+    seconds, first = [], None
+    for k, m in enumerate(SPMD_MASKS):
+        batches = mods.train_e2e.round_batches(corpora, k, batch=bsz,
+                                               seq=seq, device=device)
+        mask = torch.tensor(m, dtype=torch.float32, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (mods.sharding.use_mesh(mesh, rules) if mesh is not None
+              else contextlib.nullcontext()):
+            state, _ = step(state, batches, mask)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if first is None:
+            first = [(x.to_local() if hasattr(x, "to_local") else x).clone()
+                     for x in mods.tree_leaves(state.buffers)]
+    return state, seconds, first
+
+
+def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
+                     device="cuda"):
+    """mamba2-370m at full width and depth, ``train_e2e``'s settings (4
+    cohorts, A 2, S 2, batch 4, seq 256, β-SGD through the fused Eq.-8
+    path): 2 rounds with the state as DTensors placed by
+    ``state_shardings`` on the mesh, then 2 rounds of the plain step from
+    the same state and batches; params, buffers and staleness bitwise
+    equal; Eq. 8 launched once a round on the mesh, its last launch held
+    against the plain version."""
+    cfg = mods.get_config("mamba2_370m")
+    cohorts, stale, bsz, seq = 4, 2, 4, 256
+    if reduce:
+        cfg, bsz, seq = cfg.reduced(), 2, 64
+    e2e = mods.train_e2e
+    model = mods.build_model(cfg)
+    exp = e2e.experiment_cfg(cfg, staleness=stale, fused_agg=True)
+    sgd = mods.make_optimizer("sgd")
+    check(mods.semi_sync.uses_fused_eq8(sgd, exp), "the settings do not "
+          "take the fused Eq.-8 path")
+    rules = mods.specs.arch_rules(cfg, mesh)
+    step = mods.semi_sync.make_semi_sync_step(model, exp, sgd, cohorts)
+    corpora = e2e.cohort_corpora(cohorts, cfg.vocab_size)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    base = _peak_base(torch, device)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(0)
+
+    with mods.sharding.use_mesh(mesh, rules):
+        st_mesh = mods.semi_sync.init_state(model, gen(), sgd, cohorts,
+                                            mesh=mesh, rules=rules)
+    p0 = [x.to_local().clone() for x in mods.tree_leaves(st_mesh.params)]
+    last, orig = _last_eq8(agg)
+    try:
+        agg.LAUNCHES = 0
+        st_mesh, mesh_s, first_mesh = _spmd_rounds(
+            torch, mods, step, st_mesh, corpora, bsz=bsz, seq=seq,
+            device=device, mesh=mesh, rules=rules)
+        launches = agg.LAUNCHES
+    finally:
+        agg.stale_aggregate_flat = orig
+    peak = _peak_above(torch, device, base)
+    base = _peak_base(torch, device)
+    st_plain = mods.semi_sync.init_state(model, gen(), sgd, cohorts)
+    before = agg.LAUNCHES
+    st_plain, plain_s, first_plain = _spmd_rounds(
+        torch, mods, step, st_plain, corpora, bsz=bsz, seq=seq,
+        device=device)
+    plain_launches = agg.LAUNCHES - before
+    peak_plain = _peak_above(torch, device, base)
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    # the first round's meta-gradients, finite, then the state after both
+    # rounds (the first round's unclipped β-SGD step moves mamba2's params
+    # far enough that the second round's gradients overflow, in both
+    # routes alike: bit patterns compared, non-finite elements counted)
+    for path, x, y in zip(mods.tree_paths(st_plain.buffers), first_mesh,
+                          first_plain):
+        check(bool(torch.isfinite(y).all()) and same_bits(torch, x, y),
+              f"spmd: round 0's buffers {path}: the mesh route differs "
+              f"from the plain step's, or they are not finite")
+    del first_mesh, first_plain
+    nonfinite = {}
+    for what, a, b in (("params", st_mesh.params, st_plain.params),
+                       ("buffers", st_mesh.buffers, st_plain.buffers)):
+        for path, x, y in zip(mods.tree_paths(a), mods.tree_leaves(a),
+                              mods.tree_leaves(b)):
+            check(same_bits(torch, local(x), y), f"spmd: {what} {path} of "
+                  f"the mesh route differ from the plain step's")
+            bad = int((~torch.isfinite(y)).sum())
+            if bad:
+                nonfinite[f"{what}/{path}"] = bad
+    check(same_bits(torch, local(st_mesh.staleness), st_plain.staleness),
+          "spmd: staleness differs")
+    check(not any(k.startswith("params/") for k in nonfinite),
+          f"spmd: non-finite params {nonfinite}")
+    moved = any(not torch.equal(local(x), y) for x, y in zip(
+        mods.tree_leaves(st_mesh.params), p0))
+    check(moved, "spmd: two rounds left the params where they started")
+    want = mods.specs.state_shardings(st_plain, mods.sharding.param_placements(
+        st_plain.params, mesh, rules), mesh)
+    check(all(tuple(x.placements) == tuple(pl) for x, pl in zip(
+        mods.tree_leaves(st_mesh.buffers), mods.tree_leaves(want.buffers))),
+        "spmd: the buffers left the placements state_shardings gives them")
+    row = None
+    if device == "cuda":
+        check(launches == len(SPMD_MASKS) and plain_launches == launches,
+              f"spmd: Eq. 8 launched {launches} times on the mesh and "
+              f"{plain_launches} unsharded, not once a round")
+        row = hold_eq8_spmd(torch, agg, last["args"])
+    overhead = [m / p - 1.0 for m, p in zip(mesh_s, plain_s)]
+    print(f"[spmd] {cfg.name}, {cohorts} cohorts, A 2, S {stale}, batch "
+          f"{bsz}, seq {seq}, masks {list(SPMD_MASKS)}: mesh "
+          f"{dict(mods.sharding.mesh_shape(mesh))} on "
+          f"{torch.distributed.get_backend()}, DTensor state "
+          f"s/round {', '.join(f'{s:.3f}' for s in mesh_s)}; plain step "
+          f"{', '.join(f'{s:.3f}' for s in plain_s)}; DTensor overhead "
+          f"{', '.join(f'{o:+.1%}' for o in overhead)}; params, buffers and "
+          f"staleness bitwise equal (round 0's meta-gradients finite; after "
+          f"round 1, bit patterns, non-finite elements in both: "
+          f"{sum(nonfinite.values())} in {len(nonfinite)} leaves); "
+          f"Eq.-8 launches {launches} on the mesh "
+          f"({plain_launches} unsharded); peak memory above each route's "
+          f"start: mesh {peak:.1f} GiB, plain {peak_plain:.1f} GiB [{smi}]")
+    if row:
+        print(f"[spmd] Eq. 8 on the mesh path's last launch N={row['n']} "
+              f"C={row['c']}: err {row['max_abs_err']:.3e}, planted fault "
+              f"{row['fault_err']:.3e} rejected; kernel {row['ms']:.3f} ms, "
+              f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+              f"ms [{smi}]")
+    return dict(launches=launches, mesh_s=mesh_s, plain_s=plain_s,
+                peak_gib=peak, plain_peak_gib=peak_plain, row=row)
+
+
+def phase_spmd_mixtral(torch, fa, mods, mesh, smi, *, reduce=False,
+                       device="cuda"):
+    """Mixtral-8x22B at full width, 2 of 56 layers, f32,
+    ``attn_impl="pallas"``, dropless (capacity factor E / k): logits and
+    aux with ``moe_impl="ep"`` on the mesh against ``"gather"`` unsharded;
+    each flash launch of the mesh run held against the plain version."""
+    base = mods.get_config("mixtral_8x22b")
+    seq = 4096
+    if reduce:
+        base, seq = base.reduced(), 96
+    cfg = dataclasses.replace(
+        base, num_layers=SPMD_MOE_LAYERS if not reduce else base.num_layers,
+        dtype="float32", attn_impl="pallas",
+        moe=dataclasses.replace(
+            base.moe, capacity_factor=MOE_SERVE_CAPACITY["mixtral_8x22b"]))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    m_ep = mods.build_model(cfg, moe_impl="ep")
+    m_g = mods.build_model(cfg, moe_impl="gather")
+    params = m_g.init(torch.Generator(device=device).manual_seed(0))
+    batch = _score_batch(torch, mods, cfg.vocab_size, seq, device)
+    rules = mods.specs.arch_rules(cfg, mesh)
+    calls = []
+    with torch.inference_mode():
+        with mods.sharding.use_mesh(mesh, rules):
+            dparams = mods.sharding.param_shardings(params, mesh, rules)
+            tokens = mods.sharding.distribute(
+                batch["tokens"], mods.sharding.placements_for(
+                    ("batch", None), mesh, rules), mesh)
+            with _recording(fa, calls):
+                fa.LAUNCHES = 0
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits_ep, _, aux_ep = m_ep.forward(dparams, tokens)
+                logits_ep, aux_ep = (x.full_tensor() for x in (logits_ep,
+                                                                aux_ep))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t_ep = time.perf_counter() - t0
+                launches = fa.LAUNCHES
+        t0 = time.perf_counter()
+        logits_g, _, aux_g = m_g.forward(params, batch["tokens"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_g = time.perf_counter() - t0
+        rel = _logit_row_rel(logits_ep, logits_g)
+        aux_err = abs(float(aux_ep) - float(aux_g))
+        call_rel = _hold_path_calls(torch, fa, calls)
+        n_calls = len(calls)
+        del calls, logits_ep, logits_g
+    check(math.isfinite(rel) and rel <= EP_ROW_RTOL,
+          f"EP vs gather logits: max token row rel {rel:.3e}")
+    check(aux_err <= EP_AUX_ATOL, f"EP vs gather aux: {aux_err:.3e}")
+    check(n_calls == cfg.num_layers, f"{n_calls} flash calls on the EP "
+          f"path, not one a layer ({cfg.num_layers})")
+    if device == "cuda":
+        check(launches == cfg.num_layers, f"the EP forward launched flash "
+              f"{launches} times, not {cfg.num_layers}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    print(f"[spmd] {cfg.name}, {cfg.num_layers} layers, f32, pallas, "
+          f"capacity factor {cfg.moe.capacity_factor} (dropless), 2 x {seq} "
+          f"tokens: moe_impl ep on the mesh vs gather unsharded: logits max "
+          f"token row rel {rel:.3e} (limit {EP_ROW_RTOL:.0e}), aux |diff| "
+          f"{aux_err:.3e} (limit {EP_AUX_ATOL:.0e}); forward {t_ep:.2f} s "
+          f"(ep) vs {t_g:.2f} s (gather); flash launches {launches}, each "
+          f"vs plain max row rel {call_rel:.3e}; peak memory {peak:.1f} GiB "
+          f"[{smi}]")
+    return dict(launches=launches, logit_rel=rel, aux_err=aux_err,
+                call_rel=call_rel)
+
+
+def phase_spmd(torch, agg, fa, mods, smi):
+    """Slice 10 on the card: the dry run's four production-mesh cases start
+    in their own processes; meanwhile, on a world-1 NCCL mesh (pod 1, data
+    1, model 1), the sharded mamba2 step against the plain one and
+    Mixtral's EP against gather."""
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = start_dryrun(out_dir)
+    # a bitwise comparison needs the deterministic kernel where torch has
+    # one (warn only where it has none)
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        dist = _nccl_world(torch)
+        try:
+            mesh = mods.mesh.make_host_mesh(1, 1, pods=1)
+            mamba = timed("spmd: mamba2 step", phase_spmd_mamba, torch, agg,
+                          mods, mesh, smi)
+            mixtral = timed("spmd: mixtral ep", phase_spmd_mixtral, torch,
+                            fa, mods, mesh, smi)
+        finally:
+            dist.destroy_process_group()
+        dry = timed("spmd: dry run (wait)", finish_dryrun, procs, out_dir,
+                    smi, t0)
+    finally:
+        torch.use_deterministic_algorithms(det)
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return dict(mamba=mamba, mixtral=mixtral, dryrun=dry)
+
+
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import (ExperimentConfig, FLConfig,
@@ -3171,7 +3578,8 @@ def import_port():
     from repro_torch.fl.engine import SimulationEngine
     from repro_torch.fl.simulation import run_simulation
     from repro_torch.kernels.stale_aggregate import masked_aggregate_tree
-    from repro_torch.launch import serve, train, train_e2e
+    from repro_torch import sharding
+    from repro_torch.launch import mesh, serve, specs, train, train_e2e
     from repro_torch.models import build_model
     from repro_torch.models import audio, hybrid, layers, ssm, vlm
     from repro_torch.obs import Tracer, validate_rows
@@ -3270,6 +3678,8 @@ def main():
         torch.cuda.empty_cache()
     adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
                               agg, mods)
+    torch.cuda.empty_cache()
+    spmd = timed("spmd (slice 10)", phase_spmd, torch, agg, fa, mods, smi)
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in JAX or the JAX package")
@@ -3291,7 +3701,13 @@ def main():
              "shapes": {f"{n}x{c}": k
                         for (n, c), k in sorted(mobile["shapes"].items())},
              "on_path_inputs": {f"{n}x{c}": r for (n, c), r
-                                in sorted(mobile["holds"].items())}}},
+                                in sorted(mobile["holds"].items())}},
+         "spmd": {
+             "path": "mamba2-370m semi-sync step with DTensor state on a "
+                     "world-1 NCCL mesh, 2 rounds, one launch a round on "
+                     "the local shard through local_map",
+             "launches": spmd["mamba"]["launches"],
+             **(spmd["mamba"]["row"] or {})}},
         {"name": "fused_adam_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
          "replaces": "src/repro/kernels/fused_adam.py:36",
@@ -3337,7 +3753,13 @@ def main():
                     "shape": list(shape), "dtype": "bfloat16",
                     **attn[("flash", torch.bfloat16, shape)],
                     "float32": attn[("flash", torch.float32, shape)]}
-             for arch, shape in FLASH_ZOO_SHAPES.items()}},
+             for arch, shape in FLASH_ZOO_SHAPES.items()},
+         "spmd": {
+             "path": "mixtral-8x22b forward (2 layers, f32, moe_impl ep) "
+                     "on a world-1 NCCL mesh, the kernel on each rank's "
+                     "head shard through sharding.map_local",
+             "launches": spmd["mixtral"]["launches"],
+             "max_row_rel_vs_plain": spmd["mixtral"]["call_rel"]}},
         {"name": "decode_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:65",

@@ -7,12 +7,13 @@ The LM configs are literal copies of the JAX package's
 ``mixtral_8x22b``, ``deepseek_v2_236b``, ``llama32_vision_11b``,
 ``musicgen_large``): the whole zoo.  The reference's hyphenated aliases
 (``nemotron-4-15b``, ``mixtral-8x22b``, ``llama-3.2-vision-11b``, ...) name
-the same configs.
+the same configs.  ``SHAPES`` holds the reference's four input shapes, the
+dry run's (``get_shape``).
 """
 from __future__ import annotations
 
 from repro_torch.config import (HybridConfig, MLAConfig, ModelConfig,
-                                MoEConfig, SSMConfig)
+                                MoEConfig, ShapeConfig, SSMConfig)
 
 CONFIGS = {
     # 2-layer DNN with hidden size 100 for MNIST (Sec. VI-A)
@@ -216,6 +217,17 @@ CONFIGS = {
     ),
 }
 
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4096, global_batch=256,
+                            kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32768, global_batch=32,
+                               kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32768, global_batch=128,
+                              kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524288, global_batch=1,
+                             kind="decode"),
+}
+
 # the reference's hyphenated ids that the rule below does not map
 ALIASES = {"nemotron-4-15b": "nemotron4_15b",
            "llama-3.2-vision-11b": "llama32_vision_11b"}
@@ -226,3 +238,7 @@ def get_config(arch: str) -> ModelConfig:
     if name in CONFIGS:
         return CONFIGS[name]
     raise ValueError(f"unknown arch {arch!r}; have {sorted(CONFIGS)}")
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -57,9 +57,9 @@ class AudioLM(TransformerLM):
         rounded to the params' dtype (a reduction over K in float32 would
         round once, and differ in bf16)."""
         emb = params["embedding"]["tok_embed"]                      # [K, V, d]
-        x = emb[0][tokens[..., 0].long()]
+        x = L.embed({"tok_embed": emb[0]}, tokens[..., 0])
         for i in range(1, self.k_cb):
-            x = x + emb[i][tokens[..., i].long()]
+            x = x + L.embed({"tok_embed": emb[i]}, tokens[..., i])
         return x
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:

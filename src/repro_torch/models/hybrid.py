@@ -26,8 +26,9 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_map
@@ -193,7 +194,7 @@ class RecurrentGemmaLM:
                    + pl["conv_b"])[:, None, :]
             new_conv = hist[:, 1:, :]
         else:
-            pad = F.pad(u, (0, 0, cw - 1, 0))
+            pad = L.pad_seq(u, cw - 1)
             u_c = sum(pad[:, i:i + lq, :] * pl["conv_w"][i][None, None, :]
                       for i in range(cw)) + pl["conv_b"]
             new_conv = pad[:, pad.shape[1] - (cw - 1):, :]
@@ -247,7 +248,8 @@ class RecurrentGemmaLM:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
         window = cfg.hybrid.attention_window
-        x = L.embed(params["embedding"], tokens)
+        x = sharding.constrain(L.embed(params["embedding"], tokens), "batch",
+                               None, None)
         for kind, lp, _ in self._blocks(params):
             if kind == "rec":
                 x = self._rec_apply(lp, x)[0]
@@ -306,9 +308,13 @@ class RecurrentGemmaLM:
         return L.rmsnorm(params["final_norm"], x), cache
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache_len: int,
-                **_kw) -> Tuple[torch.Tensor, Params]:
-        cache = self.init_cache(tokens.shape[0], cache_len,
-                                device=tokens.device)
+                *, cache: Optional[Params] = None, **_kw
+                ) -> Tuple[torch.Tensor, Params]:
+        """``cache``: an empty cache to fill in place (a new one by
+        default)."""
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], cache_len,
+                                    device=tokens.device)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x, cache = self._run_with_cache(params, tokens, cache, positions,

@@ -8,9 +8,13 @@ tensors with static shapes; sliding-window caches are ring buffers storing
 absolute positions (-1 = empty), so one attention code path serves full,
 windowed and ring-buffer caches.
 
+``sharding.constrain`` stands where the reference's does: the identity
+without a mesh, a DTensor redistribution on one.  Under a mesh, DTensors
+flow through the same code (``implicit_replication`` lifts the plain
+tensors the code makes, such as positions and masks, to replicated ones).
+
 Differences from the reference, none of which changes a result:
 
-* ``sharding.constrain`` is the identity without a mesh and is dropped.
 * Torch has no scatter ``mode="drop"``: ``attention_apply`` masks the ring
   buffer's writes instead, and writes the cache IN PLACE (the reference
   returns a new cache) so a full-width cache is never copied per step.
@@ -29,8 +33,10 @@ for step.  Two differences, again without changing a result:
   reference's sorted updates), where a scatter-add on the card would
   use atomics and change bf16 outputs from run to run.
 
-The expert-parallel ``moe_apply_ep`` is not ported yet: ``moe_apply``
-raises on it.
+The expert-parallel ``moe_apply_ep`` runs on a ``DeviceMesh``: routing
+on DTensors, the capacity buckets, expert products and combine of each
+shard's experts on its local tensors through ``local_map``, and one
+all-reduce over ``model`` in place of the reference's ``psum``.
 """
 from __future__ import annotations
 
@@ -41,14 +47,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 
 Params = Dict[str, Any]
-
-NO_MESH = ("not ported yet: it needs the device mesh of ROADMAP queue 1, "
-           "item 5 (SPMD)")
-
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -84,6 +88,17 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, scale=None, *,
     for idx in lead_indices(lead):
         out[idx] = (normal(gen, (in_dim, out_dim), device) * scale).to(dtype)
     return out
+
+
+def pad_seq(x: torch.Tensor, before: int, after: int = 0) -> torch.Tensor:
+    """Zeros before and after dim 1 (the sequence) of ``x``: ``F.pad``'s
+    values, built by concatenation, which every DTensor version lays out
+    on any mesh (torch 2.11's ``constant_pad_nd`` strategy gives a 2-D mesh
+    a one-placement layout)."""
+    zero = torch.zeros_like(x[:, :1])
+    parts = ([zero.expand(-1, before, *x.shape[2:])] if before else []) \
+        + [x] + ([zero.expand(-1, after, *x.shape[2:])] if after else [])
+    return torch.cat(parts, dim=1) if len(parts) > 1 else x
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +199,33 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, lq, hq, v.shape[-1]).to(q.dtype)
 
 
+def attention_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     *pos: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, *pos)`` (flash or ``sdpa`` on plain tensors) on
+    DTensors, each rank on its own batch rows and query heads
+    (``sharding.map_local``): attention is independent per (batch row,
+    head).  Query heads group over kv heads locally only when the model
+    axis splits the kv heads evenly; else each query head gets its own copy
+    of its kv head first.  k, v and the positions are gathered along the
+    key sequence (a decode cache may split it)."""
+    from torch.distributed.tensor import Replicate
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    m = mesh.shape[names.index("model")] if "model" in names else 1
+    pos = tuple(p if isinstance(p, DTensor) else DTensor.from_local(
+        p, mesh, (Replicate(),) * mesh.ndim, run_check=False) for p in pos)
+    if k.shape[2] % m:
+        g = q.shape[2] // k.shape[2]
+        k, v = (sharding.replicate_dim(t, 2).repeat_interleave(g, dim=2)
+                for t in (k, v))
+    batch = tuple(a for a in ("pod", "data") if a in names) or None
+    qkv = sharding.spec_placements(
+        (batch, None, "model" if m > 1 else None, None), mesh)
+    pp = sharding.spec_placements((batch, None), mesh)
+    return sharding.map_local(fn, (q, k, v) + pos,
+                              (qkv,) * 3 + (pp,) * len(pos), (qkv,))
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int,
          scale: Optional[float] = None, chunk: int = SDPA_CHUNK,
@@ -203,6 +245,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{hq} query heads do not group over "
                          f"{k.shape[2]} kv heads")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if isinstance(q, DTensor):
+        return attention_shards(
+            lambda q_, k_, v_, qp, kp: sdpa(
+                q_, k_, v_, q_pos=qp, k_pos=kp, causal=causal, window=window,
+                scale=scale, chunk=chunk, cast_f32=cast_f32),
+            q, k, v, q_pos, k_pos)
 
     if lq <= chunk:
         mask = _attn_scores_mask(q_pos, k_pos, causal=causal, window=window)
@@ -255,22 +303,64 @@ def _write_ring(cache: Params, positions: torch.Tensor,
     """Write each new entry [B, Lq, ...] into the cache's buffer of the
     same name at slot = pos % W, and the positions into ``cache["pos"]``,
     in place.  Of more than W new tokens only the last W are kept, as the
-    reference's out-of-bounds slot with ``mode="drop"`` keeps them, so
-    slots never collide."""
+    reference's out-of-bounds slot with ``mode="drop"`` keeps them (those
+    with pos >= pos[-1] - W + 1), so slots never collide.  Several new
+    tokens come from a prefill, whose positions are consecutive: the kept
+    ones are the last W, a slice whose size needs no look at the data."""
     b, lq = next(iter(new.values())).shape[:2]
     w = cache["pos"].shape[1]
     pos_b = torch.broadcast_to(positions, (lq,)).to(torch.int32)
-    if lq > 1:
-        keep = pos_b >= (pos_b[-1] - w + 1)
-        idx = torch.nonzero(keep).flatten()       # host sync: prefill only
-        new = {name: t[:, idx] for name, t in new.items()}
-        pos_b = pos_b[idx]
+    if lq > w:
+        new = {name: t[:, lq - w:] for name, t in new.items()}
+        pos_b = pos_b[lq - w:]
     # (one new token is always kept: pos >= pos - W + 1)
     slots = (pos_b % w).long()
+    if isinstance(cache["pos"], DTensor):
+        _blend_ring(cache, slots, pos_b, b, new)
+        return
     for name, t in new.items():
         cache[name].index_copy_(1, slots, t.to(cache[name].dtype))
     cache["pos"].index_copy_(1, slots,
                              torch.broadcast_to(pos_b, (b, pos_b.shape[0])))
+
+
+def _blend_ring(cache: Params, slots: torch.Tensor, pos_b: torch.Tensor,
+                b: int, new: Dict[str, torch.Tensor]) -> None:
+    """``_write_ring``'s writes on a mesh: each slot takes its new entry
+    (one decoded token broadcast over the slots, or several gathered to
+    [B, W, ...]) where one lands, its old one elsewhere — an elementwise
+    blend, right in any layout of the cache, copied back in place
+    (DTensor's in-place ``index_copy_`` may re-lay the destination without
+    moving its data)."""
+    w = cache["pos"].shape[1]
+    hit = slots[None, :] == torch.arange(w, device=slots.device)[:, None]
+    written = hit.any(dim=1)                                   # [W]
+    src = torch.argmax(hit.to(torch.int32), dim=1)             # [W]
+    for name, t in list(new.items()) + [
+            ("pos", torch.broadcast_to(pos_b, (b, pos_b.shape[0])))]:
+        c = cache[name]
+        keep = written.reshape((1, w) + (1,) * (c.ndim - 2))
+        t = t if t.shape[1] == 1 else t[:, src]
+        c.copy_(sharding.constrain_like(
+            torch.where(keep, t.to(c.dtype), c), c))
+
+
+def _project_heads(x: torch.Tensor, w: torch.Tensor, h: int, hd: int
+                   ) -> torch.Tensor:
+    """x [B, L, d] @ w [d, h * hd] → [B, L, h, hd].  On a mesh whose ranks
+    split w's head dim into pieces that cut heads (h does not divide over
+    them: GQA's few kv heads), the heads are cut apart and stacked (copies,
+    the same values): DTensor cannot view such a split into heads, nor, in
+    a second-order backward, its gradient; its split gathers the dim."""
+    y = x @ w
+    if sharding.active_mesh() is not None and isinstance(w, DTensor):
+        k = 1
+        for i, p in enumerate(w.placements):
+            if p.is_shard(w.ndim - 1):
+                k *= w.device_mesh.shape[i]
+        if h % k:
+            return torch.stack(torch.split(y, hd, dim=-1), dim=2)
+    return y.reshape(y.shape[0], y.shape[1], h, hd)
 
 
 def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -293,15 +383,16 @@ def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
 
-    q = (x @ params["w_q"]).reshape(b, lq, hq, hd)
+    q = _project_heads(x, params["w_q"], hq, hd)
     src = kv_input if kv_input is not None else x
     lk = src.shape[1]
-    k = (src @ params["w_k"]).reshape(b, lk, hkv, hd)
-    v = (src @ params["w_v"]).reshape(b, lk, hkv, hd)
+    k = _project_heads(src, params["w_k"], hkv, hd)
+    v = _project_heads(src, params["w_v"], hkv, hd)
 
     if kv_input is None and cfg.attention != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = sharding.constrain(q, "batch", None, "act_heads", None)
 
     q_pos = torch.broadcast_to(positions, (b, lq))
     if kv_input is not None:
@@ -323,7 +414,12 @@ def attention_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
 
     if cfg.attn_impl == "pallas" and cache is None and kv_input is None:
         from repro_torch.kernels import flash_attention as fa
-        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if isinstance(q, DTensor):
+            out = attention_shards(
+                lambda q_, k_, v_: fa.flash_attention(
+                    q_, k_, v_, causal=causal, window=window), q, k, v)
+        else:
+            out = fa.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = sdpa(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
                    window=window, cast_f32=cfg.attn_cast_f32)
@@ -492,6 +588,7 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
         h = act(x @ params[prefix + "w_gate"]) * up
     else:
         h = act(up)
+    h = sharding.constrain(h, "batch", None, "act_ffn")
     return h @ params[prefix + "w_down"]
 
 
@@ -549,7 +646,10 @@ def _route(params: Params, xf: torch.Tensor, e
     idx = idx[:, :e.experts_per_token]
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss
-    counts = torch.bincount(idx.reshape(-1), minlength=e.num_experts).float()
+    # a one-hot count (bincount's values; its output size depends on
+    # the data, which neither meta tensors nor DTensor can propagate)
+    counts = (idx.reshape(-1, 1) == torch.arange(
+        e.num_experts, device=idx.device)).sum(0).float()
     frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
     frac_probs = full.mean(dim=0)
     aux = e.num_experts * torch.sum(frac_tokens * frac_probs) \
@@ -569,18 +669,46 @@ def moe_dispatch(idx: torch.Tensor, num_experts: int, cap: int
     """The reference's capacity buckets: the (token, slot) pairs sorted
     stably by expert, each expert's first ``cap`` kept.  Returns each
     pair's row in the [E * cap + 1] expert buffer, [T, k]; a dropped pair
-    gets the last row, E * cap."""
+    gets the last row, E * cap.  On a mesh every rank computes every
+    token's row from the replicated routing (``local_map``)."""
+    if isinstance(idx, DTensor):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        rep = (Replicate(),) * idx.device_mesh.ndim
+        return local_map(moe_dispatch, out_placements=(rep,),
+                         in_placements=(rep, None, None),
+                         device_mesh=idx.device_mesh,
+                         redistribute_inputs=True)(idx, num_experts, cap)
     t, k = idx.shape
     e_flat = idx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     se = e_flat[order]
-    starts = torch.searchsorted(se, torch.arange(num_experts, device=se.device,
-                                                 dtype=se.dtype))
+    # each expert's first row in ``se``: the count of pairs routed below it
+    # (searchsorted's value; DTensor has no strategy for searchsorted)
+    starts = (e_flat[:, None] < torch.arange(
+        num_experts, device=se.device, dtype=se.dtype)).sum(0)
     slot = torch.arange(t * k, device=se.device) - starts[se]
-    dst = torch.where(slot < cap, se * cap + slot, num_experts * cap)
+    dst = torch.where(slot < cap, se * cap + slot,
+                      torch.full_like(slot, num_experts * cap))
     out = torch.empty_like(dst)
     out[order] = dst                          # back to (token, slot) order
     return out.reshape(t, k)
+
+
+def _combine(pl: torch.Tensor, il: torch.Tensor, dst: torch.Tensor,
+             ho: torch.Tensor, n_rows: int, dtype) -> torch.Tensor:
+    """Each token's contributions from ``ho`` [rows + 1, d], scaled by its
+    gates ``pl`` rounded to ``dtype`` and summed in ascending expert order
+    (a token's k experts differ, so the order is unique); dropped pairs,
+    and pairs of another shard's experts, point at the zero row
+    ``n_rows``."""
+    by_expert = torch.argsort(il, dim=-1)
+    dst = torch.gather(dst, 1, by_expert)
+    gate = (torch.gather(pl, 1, by_expert) * (dst < n_rows)).to(dtype)
+    out = ho.new_zeros((il.shape[0], ho.shape[1]))
+    for j in range(il.shape[1]):
+        out = out + ho[dst[:, j]] * gate[:, j, None]
+    return out
 
 
 def moe_apply_gather(params: Params, x: torch.Tensor, cfg: ModelConfig
@@ -605,15 +733,7 @@ def moe_apply_gather(params: Params, x: torch.Tensor, cfg: ModelConfig
     hu = torch.bmm(hb, params["moe_up"])
     ho = torch.bmm(act(hg) * hu, params["moe_down"])
     ho = torch.cat([ho.reshape(e.num_experts * cap, d), x.new_zeros((1, d))])
-    # each token's pairs in ascending expert order (a token's k experts
-    # differ, so the order is unique)
-    by_expert = torch.argsort(idx, dim=-1)
-    dst = torch.gather(dst, 1, by_expert)
-    gate = torch.gather(probs, 1, by_expert) * (dst < e.num_experts * cap)
-    gate = gate.to(x.dtype)
-    out = x.new_zeros((t, d))
-    for j in range(e.experts_per_token):
-        out = out + ho[dst[:, j]] * gate[:, j, None]
+    out = _combine(probs, idx, dst, ho, e.num_experts * cap, x.dtype)
 
     if e.num_shared_experts:
         out = out + _shared_expert(params, xf, cfg)
@@ -627,13 +747,117 @@ def _shared_expert(params: Params, xf: torch.Tensor, cfg: ModelConfig
     return h @ params["shared_down"]
 
 
+def moe_apply_ep(params: Params, x: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE: experts live on the ``model`` mesh axis, tokens
+    are replicated across it; each shard computes only its experts on its
+    local tensors (``sharding.map_local``, the reference's ``shard_map``),
+    and the contributions combine by one all-reduce over ``model`` (the
+    output is a Partial sum there, reduced where it is next used).
+    Routing stays outside, as in the reference.  Without a mesh with a
+    ``model`` axis (or on a plain tensor, which a mesh cannot hold shards
+    of) it is ``moe_apply_gather``.
+
+    With fewer experts than shards, each expert's FFN width splits into
+    ``rep`` chunks, E·rep virtual experts (the gated MLP is additive over
+    f-chunks through w_down), so every shard owns exactly one; the shard
+    cuts its chunk from the replicated weights."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = sharding.active_mesh()
+    if (mesh is None or "model" not in mesh.mesh_dim_names
+            or not isinstance(x, DTensor)):
+        return moe_apply_gather(params, x, cfg)
+    e = cfg.moe
+    b, sl, d = x.shape
+    t_global = b * sl
+    k = e.experts_per_token
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model")
+    ep = mesh.shape[mi]
+    f_dim = params["moe_gate"].shape[-1]
+    # routing outside local_map
+    probs, idx, aux = _route(params, x.reshape(t_global, d).float(), e)
+
+    if e.num_experts % ep == 0:
+        rep = 1
+        w_pl = tuple(Shard(0) if i == mi else Replicate()
+                     for i in range(len(names)))
+        # each batch shard adds its tokens' part of an expert's gradient
+        w_grad = tuple(Shard(0) if i == mi else Partial()
+                       for i in range(len(names)))
+    elif ep % e.num_experts == 0:
+        rep = ep // e.num_experts
+        if f_dim % rep:
+            raise ValueError(f"expert width {f_dim} does not split into "
+                             f"{rep} chunks")
+        w_pl = (Replicate(),) * len(names)
+        # each shard's gradient is its own chunk of one expert
+        w_grad = (Partial(),) * len(names)
+    else:
+        raise ValueError(f"experts={e.num_experts} incompatible with "
+                         f"model axis {ep}")
+    e_loc = e.num_experts * rep // ep
+    k_eff = k * rep
+    fr = f_dim // rep
+
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    x_pl = sharding.spec_placements((batch_axes or None, None, None), mesh)
+    # a token's output (and its gradient) sums over the model shards
+    x_sum = tuple(Partial() if i == mi else p for i, p in enumerate(x_pl))
+    n_batch_shards = 1
+    for a in batch_axes:
+        n_batch_shards *= mesh.shape[names.index(a)]
+    t_loc = t_global // n_batch_shards
+    cap = int(math.ceil(t_loc * k / e.num_experts * e.capacity_factor))
+    cap = max(8, -(-cap // 8) * 8)
+    my = mesh.get_local_rank(mi) * e_loc       # first (virtual) expert here
+
+    def shard_fn(xb, pb, ib, wg, wu, wd):
+        bb, ll, _ = xb.shape
+        tl = bb * ll
+        xl = xb.reshape(tl, d)
+        pl = pb.reshape(tl, k)
+        il = ib.reshape(tl, k)
+        if rep > 1:
+            # virtual expert v = e·rep + r: expert e's f-chunk r
+            il = (il[..., None] * rep + torch.arange(
+                rep, device=il.device)).reshape(tl, k_eff)
+            pl = pl.repeat_interleave(rep, dim=-1)
+            ex, r = divmod(my, rep)
+            cut = slice(r * fr, (r + 1) * fr)
+            wg, wu = wg[ex:ex + 1, :, cut], wu[ex:ex + 1, :, cut]
+            wd = wd[ex:ex + 1, cut, :]
+        e_rel = il - my
+        mine = (e_rel >= 0) & (e_rel < e_loc)
+        # the sentinel expert e_loc ("not mine") sorts last and is dropped
+        dst = moe_dispatch(torch.where(mine, e_rel, e_loc), e_loc + 1, cap)
+        dst = torch.where(dst < e_loc * cap, dst, e_loc * cap)
+        buf = xl.new_zeros((e_loc * cap + 1, d))
+        buf[dst.reshape(-1)] = xl.repeat_interleave(k_eff, dim=0)
+        h = buf[:-1].reshape(e_loc, cap, d)
+        act = _act("silu")
+        ho = torch.bmm(act(torch.bmm(h, wg)) * torch.bmm(h, wu), wd)
+        ho = torch.cat([ho.reshape(e_loc * cap, d), xl.new_zeros((1, d))])
+        out = _combine(pl, il, dst, ho, e_loc * cap, xl.dtype)
+        return out.reshape(bb, ll, d)
+
+    out = sharding.map_local(
+        shard_fn, (x, probs.to(x.dtype).reshape(b, sl, k),
+                   idx.reshape(b, sl, k), params["moe_gate"],
+                   params["moe_up"], params["moe_down"]),
+        (x_pl, x_pl, x_pl, w_pl, w_pl, w_pl), (x_sum,),
+        (x_sum, x_sum, x_pl, w_grad, w_grad, w_grad))
+
+    if e.num_shared_experts:
+        xf = x.reshape(t_global, d)
+        out = out + _shared_expert(params, xf, cfg).reshape(b, sl, d)
+    return out, aux
+
+
 def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
               impl: str = "gather") -> Tuple[torch.Tensor, torch.Tensor]:
-    """``impl="gather"`` runs ``moe_apply_gather``.  The reference's
-    ``"ep"`` (expert parallelism through ``shard_map``) needs a mesh the
-    port does not have yet, so it raises rather than quietly gathering."""
     if impl == "ep":
-        raise NotImplementedError(f"moe_apply_ep is {NO_MESH}")
+        return moe_apply_ep(params, x, cfg)
     return moe_apply_gather(params, x, cfg)
 
 
@@ -654,7 +878,14 @@ def embedding_init(gen, cfg: ModelConfig, *, device="cpu") -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok_embed"][tokens.long()]
+    """Rows of the table (``F.embedding``: the same values as indexing).
+    On a mesh the vocab dim is gathered first: a lookup into a split vocab
+    leaves a masked partial sum, which DTensor cannot always reduce
+    (``cross_entropy`` has the same trouble) nor compare on meta tensors."""
+    table = params["tok_embed"]
+    if isinstance(table, DTensor):
+        table = sharding.replicate_dim(table, 0)
+    return F.embedding(tokens.long(), table)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -668,7 +899,16 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """Mean token cross-entropy in f32. logits [..., V], targets [...] int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if sharding.active_mesh() is not None:
+        # on a mesh the vocab dim may be sharded, and DTensor's gather over
+        # it leaves a masked partial it cannot reduce; a one-hot masked sum
+        # is the same value (one term, the rest exact zeros) and reduces as
+        # a plain sum
+        hot = torch.arange(logits.shape[-1], device=logits.device) \
+            == targets.long()[..., None]
+        gold = torch.where(hot, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

@@ -20,12 +20,15 @@ path) computes what the reference's ``ssm.py`` computes.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_map
@@ -57,6 +60,34 @@ def segsum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, -math.inf)
 
 
+def _scan_shards(scan, x, dt, a, b, c, chunk):
+    """``scan`` on DTensors, each rank on its own batch rows and heads
+    (``sharding.map_local``): the scan is independent per (batch row,
+    head).  b and c are shared across heads and ``a`` across batch rows,
+    so their gradients sum over the ranks that split the other dim."""
+    from torch.distributed.tensor import Partial
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    m = mesh.shape[names.index("model")] if "model" in names else 1
+    batch = tuple(n for n in ("pod", "data") if n in names) or None
+    heads = "model" if m > 1 and x.shape[2] % m == 0 else None
+
+    def pl(*spec):
+        return sharding.spec_placements(spec, mesh)
+
+    def summed(placements, axes):
+        return tuple(Partial() if n in axes and p.is_replicate() else p
+                     for n, p in zip(names, placements))
+
+    xp, dtp, ap, bcp = (pl(batch, None, heads, None), pl(batch, None, heads),
+                        pl(heads), pl(batch, None, None))
+    return sharding.map_local(
+        lambda *t: scan(*t, chunk), (x, dt, a, b, c),
+        (xp, dtp, ap, bcp, bcp), (xp, pl(batch, heads, None, None)),
+        (xp, dtp, summed(ap, batch or ()), summed(bcp, (heads,)),
+         summed(bcp, (heads,))))
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None,
@@ -82,10 +113,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         # zero-pad to a chunk multiple: dt=0 at pads ⇒ decay 1, update 0 —
         # the state is provably unaffected by padding positions
         pad = chunk - sl % chunk
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, pad))
+        x, dt, b, c = (L.pad_seq(t, 0, pad) for t in (x, dt, b, c))
         sl = sl + pad
     nc = sl // chunk
 
@@ -219,7 +247,7 @@ class Mamba2LM:
         z, xbc, dt_raw = self._split_proj(xn @ pl["in_proj"])
         # causal depthwise conv (width W): pad left
         w = cfg.ssm.conv_width
-        pad = F.pad(xbc, (0, 0, w - 1, 0))
+        pad = L.pad_seq(xbc, w - 1)
         conv = sum(pad[:, i:i + lq, :] * pl["conv_w"][i][None, None, :]
                    for i in range(w)) + pl["conv_b"]
         u = F.silu(conv)
@@ -242,6 +270,8 @@ class Mamba2LM:
         w = cfg.ssm.conv_width
         conv_tail = pad[:, pad.shape[1] - (w - 1):, :]
         xf = xs.float()
+        if isinstance(xf, DTensor):
+            scan = functools.partial(_scan_shards, scan)
         y, s_final = scan(xf, dt, a, b.float(), c.float(),
                           cfg.ssm.chunk_size)
         y = y + pl["D_skip"][None, None, :, None] * xf
@@ -259,7 +289,8 @@ class Mamba2LM:
     def forward(self, params: Params, tokens: torch.Tensor, **_kw):
         cfg = self.cfg
         scan = self._scan()
-        x = L.embed(params["embedding"], tokens)
+        x = sharding.constrain(L.embed(params["embedding"], tokens), "batch",
+                               None, None)
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], params["layers"])
             x = self.layer(lp, x, scan)[0]

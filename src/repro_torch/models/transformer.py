@@ -25,8 +25,11 @@ cache (``forward``, ``loss``, ``predict``) runs through the flash kernel
 go through ``sdpa``, as in the reference.  ``prefill`` and ``decode_step``
 write the cache in place and return it.
 
-``moe_impl="ep"`` is not ported yet (ROADMAP queue 1, item 5: it needs a
-device mesh).
+``moe_impl="ep"`` runs ``layers.moe_apply_ep`` (expert parallelism on
+the active mesh; the gather MoE without one).  ``sharding.constrain``
+stands at the reference's call sites (tokens, the embedding, each
+layer's output, the logits); the audio subclass shares them, where the
+reference's own audio forward has the embedding's.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_map
@@ -62,8 +66,6 @@ class TransformerLM:
         if self.n_cross and cfg.num_layers % cfg.cross_attn_every:
             raise ValueError(f"{cfg.num_layers} layers do not group by "
                              f"cross_attn_every={cfg.cross_attn_every}")
-        if self.is_moe and moe_impl == "ep":
-            raise NotImplementedError(f"moe_impl='ep' is {L.NO_MESH}")
 
     # ------------------------------------------------------------- init ---
     def init(self, gen: Optional[torch.Generator], *, device=None) -> Params:
@@ -125,8 +127,9 @@ class TransformerLM:
         h = norm(p["norm_ffn"], x)
         if self.is_moe:
             ffn_out, aux = L.moe_apply(p["moe"], h, cfg, impl=self.moe_impl)
-            return x + ffn_out, aux
-        return x + L.mlp_apply(p, h, cfg), None
+        else:
+            ffn_out, aux = L.mlp_apply(p, h, cfg), None
+        return sharding.constrain(x + ffn_out, "batch", None, None), aux
 
     def _cross_apply(self, p: Params, x: torch.Tensor, kv: torch.Tensor
                      ) -> torch.Tensor:
@@ -160,7 +163,9 @@ class TransformerLM:
                                      device=tokens.device)
         win = cfg.sliding_window if window is None else window
 
-        x = self._embed(params, tokens)
+        tokens = sharding.constrain(tokens, "batch", None)
+        x = sharding.constrain(self._embed(params, tokens), "batch", None,
+                               None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
@@ -182,7 +187,8 @@ class TransformerLM:
         return L.embed(params["embedding"], tokens)
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return L.unembed(params["embedding"], x)
+        return sharding.constrain(L.unembed(params["embedding"], x),
+                                  "batch", None, "vocab")
 
     # ------------------------------------------------------------ loss ----
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], rng=None
@@ -207,10 +213,13 @@ class TransformerLM:
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache_len: int,
                 *, image_embeds: Optional[torch.Tensor] = None,
-                window: Optional[int] = None
+                window: Optional[int] = None, cache: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Params]:
-        cache = self.init_cache(tokens.shape[0], cache_len,
-                                device=tokens.device)
+        """``cache``: an empty cache (as ``init_cache`` makes it) to fill in
+        place, such as one placed on a mesh; a new one by default."""
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], cache_len,
+                                    device=tokens.device)
         logits, cache, _ = self.forward(params, tokens, cache=cache,
                                         image_embeds=image_embeds,
                                         window=window)

@@ -80,6 +80,20 @@ def tree_dot(a, b) -> torch.Tensor:
     return total
 
 
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """``leaves`` (in ``tree_leaves`` order) put in ``tree``'s structure,
+    ``tree``'s own key order kept."""
+    it = iter(leaves)
+
+    def go(node):
+        if not isinstance(node, dict):
+            return next(it)
+        vals = {k: go(node[k]) for k in sorted(node)}
+        return {k: vals[k] for k in node}
+
+    return go(tree)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 

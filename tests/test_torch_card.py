@@ -723,3 +723,119 @@ def test_served_logits_match_teacher_forcing_on_card(arch, dtype,
     want = want[:, 39:].float()
     rel = (res.logits.float() - want).norm(dim=-1) / want.norm(dim=-1)
     assert float(rel.max()) <= SERVE_ROW_RTOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the SPMD layer on a world-1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh():
+    """(pod 1, data 1, model 1) over a one-rank NCCL group."""
+    _need_card()
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield make_host_mesh(1, 1, pods=1)
+    finally:
+        torch.use_deterministic_algorithms(det)
+        dist.destroy_process_group()
+
+
+def _bits(t):
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(as_int[t.element_size()])
+
+
+def test_sharded_semi_sync_step_is_the_plain_step_bitwise(nccl_mesh):
+    """Reduced mamba2, 4 cohorts, two fused Eq.-8 rounds with the state as
+    DTensors on the mesh, then the plain step from the same seed: params,
+    buffers and staleness the same bits; Eq. 8 launched once a round on
+    each route."""
+    import contextlib
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.core import semi_sync
+    from repro_torch.launch import specs, train_e2e
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("mamba2_370m").reduced()
+    model = build_model(cfg)
+    exp = train_e2e.experiment_cfg(cfg, staleness=2, fused_agg=True)
+    sgd = make_optimizer("sgd")
+    rules = specs.arch_rules(cfg, nccl_mesh)
+    step = semi_sync.make_semi_sync_step(model, exp, sgd, 4)
+    corpora = train_e2e.cohort_corpora(4, cfg.vocab_size)
+
+    def rounds(mesh):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with (sharding.use_mesh(mesh, rules) if mesh is not None
+              else contextlib.nullcontext()):
+            st = semi_sync.init_state(model, gen, sgd, 4, mesh=mesh,
+                                      rules=rules if mesh else None)
+            before = agg.LAUNCHES
+            for k in range(2):
+                b = train_e2e.round_batches(corpora, k, batch=2, seq=64,
+                                            device="cuda")
+                st, _ = step(st, b, torch.tensor([1.0, 1.0, 0.0, 0.0],
+                                                 device="cuda"))
+        return st, agg.LAUNCHES - before
+
+    got, n_mesh = rounds(nccl_mesh)
+    want, n_plain = rounds(None)
+    assert n_mesh == n_plain == 2
+    for a, b in ((got.params, want.params), (got.buffers, want.buffers)):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            assert torch.equal(_bits(x.to_local()), _bits(y))
+    assert torch.equal(got.staleness.to_local(), want.staleness)
+
+
+def test_expert_parallel_moe_matches_gather_on_the_card(nccl_mesh):
+    """Reduced Mixtral in f32 with the flash kernel, dropless: logits with
+    ``moe_impl="ep"`` on the mesh against ``"gather"`` unsharded within the
+    reference EP test's 1e-4, aux within 1e-5; one flash launch a layer."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+
+    base = get_config("mixtral_8x22b").reduced()
+    cfg = dataclasses.replace(base, dtype="float32", attn_impl="pallas",
+                              moe=dataclasses.replace(base.moe,
+                                                      capacity_factor=4.0))
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    rules = specs.arch_rules(cfg, nccl_mesh)
+    with torch.inference_mode():
+        with sharding.use_mesh(nccl_mesh, rules):
+            before = fa.LAUNCHES
+            got, _, aux = build_model(cfg, moe_impl="ep").forward(
+                sharding.param_shardings(params, nccl_mesh, rules),
+                sharding.distribute(tokens, sharding.placements_for(
+                    ("batch", None), nccl_mesh, rules), nccl_mesh))
+            launches = fa.LAUNCHES - before
+            got, aux = got.full_tensor(), aux.full_tensor()
+        want, _, want_aux = build_model(cfg).forward(params, tokens)
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+    assert launches == cfg.num_layers

@@ -101,11 +101,10 @@ def test_lm_configs_are_literal_copies(arch):
 
 
 def test_unported_families_name_the_roadmap_queue():
-    """Every family of the zoo builds; what is left unported (the
-    expert-parallel MoE) names its queue."""
+    """Every family of the zoo builds, the expert-parallel MoE too."""
     for arch in ("llama32_vision_11b", "musicgen_large"):
         model = build_model(get_config(arch))
         assert type(model).__name__ == {"vlm": "VisionLM",
                                         "audio": "AudioLM"}[model.cfg.family]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(get_config("mixtral_8x22b"), moe_impl="ep")
+    assert build_model(get_config("mixtral_8x22b"),
+                       moe_impl="ep").moe_impl == "ep"

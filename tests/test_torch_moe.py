@@ -20,7 +20,7 @@ flipped by rounding; the all-ties case checks the tie order itself.
   sliding-window case of ``tests/test_pallas_model_integration.py``;
 * prefill and a ring-wrapping decode against the reference;
 * full-width param and cache layouts on ``meta``; serve on the CPU;
-  ``moe_impl="ep"`` raises.
+  ``moe_impl="ep"`` without a mesh is the gather MoE.
 """
 import dataclasses
 
@@ -307,10 +307,15 @@ def test_mixtral_serve_entry_runs_on_the_cpu(capsys):
 
 
 def test_expert_parallel_moe_raises():
+    """``moe_impl="ep"`` builds; without a mesh it is the gather MoE, as
+    in the reference (``tests/test_torch_spmd.py`` holds it on a mesh).
+    What still raises is an expert count the model axis cannot split."""
     _, port_cfg = cfgs("mixtral_8x22b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        build_model(port_cfg, moe_impl="ep")
+    assert build_model(port_cfg, moe_impl="ep").moe_impl == "ep"
     params = L.moe_init(torch.Generator().manual_seed(0), port_cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        L.moe_apply(params, torch.zeros(1, 4, port_cfg.d_model), port_cfg,
-                    impl="ep")
+    x = torch.randn(2, 4, port_cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    got = L.moe_apply(params, x, port_cfg, impl="ep")
+    want = L.moe_apply_gather(params, x, port_cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -209,8 +209,15 @@ def test_serve_without_a_card_raises():
 
 
 def test_unported_parts_of_the_dense_stack_raise():
+    """Nothing of the stack is left unported: ``moe_impl="ep"`` builds,
+    and without a mesh its loss is the gather MoE's, bitwise."""
     _, port_cfg = _cfgs(2)
     moe_cfg = dataclasses.replace(port_cfg, moe=get_config(
         "mixtral_8x22b").reduced().moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_model(moe_cfg, moe_impl="ep")
+    gen = torch.Generator().manual_seed(0)
+    ep, gather = (build_model(moe_cfg, moe_impl=m) for m in ("ep", "gather"))
+    params = gather.init(gen)
+    tok = torch.randint(0, moe_cfg.vocab_size, (2, 8), generator=gen)
+    batch = {"tokens": tok, "targets": tok}
+    assert torch.equal(ep.loss(params, batch)[0],
+                       gather.loss(params, batch)[0])
