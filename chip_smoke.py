@@ -1377,6 +1377,89 @@ def phase_adam_vs_plain(torch, adam):
     return rows
 
 
+def phase_ops(torch, fa, ssd, adam, mods):
+    """One call each of ``ops.flash_attention`` (model layout, yi-6b's
+    scoring shape in bf16), ``ops.ssd_chunked`` (mamba2's scoring shape,
+    2 x 4,096 tokens in chunks of 256) and ``ops.fused_adam_tree`` (an
+    in_proj-like bf16 leaf and an f32 one, g in bf16, which the wrapper
+    casts to f32), each held against its oracle in ``ref`` at the limits
+    of its kernel's phase: flash row rel 1e-2 against the f32 oracle left
+    unrounded; the SSD scan against ``ref.ssd_chunk_ref``'s naive
+    recurrence over the whole sequence (one chunk of 4,096 from a zero
+    state: y and the final state), scaled 5e-4; Adam p within a bf16 ulp,
+    m and v 1e-6 relative."""
+    ops, ref = mods.ops, mods.ref
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    b, hq, hkv, sl, d, causal, window = FLASH_SCORE_SHAPE
+    q = randn(b, sl, hq, d).bfloat16()
+    k, v = (randn(b, sl, hkv, d).bfloat16() for _ in range(2))
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES - before == 1, "ops.flash_attention did not launch "
+          "the flash kernel once")
+    want = ref.attention_ref(*(t.float().transpose(1, 2) for t in (q, k, v)),
+                             causal=causal, window=window).transpose(1, 2)
+    _, flash_rel = hold(torch, "flash", got, want,
+                        "ops.flash_attention vs ref.attention_ref")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    bs, nc, qc, h, p, n = SSD_SCORE_SHAPE
+    x, dt, a, bb, cc = (t.reshape((bs, nc * qc) + t.shape[3:])
+                        if t.ndim > 1 else t
+                        for t in _ssd_inputs(torch, SSD_SCORE_SHAPE, 22))
+    before = ssd.LAUNCHES
+    y, state = ops.ssd_chunked(x, dt, a, bb, cc, qc)
+    torch.cuda.synchronize()
+    check(ssd.LAUNCHES - before == 1, "ops.ssd_chunked did not launch the "
+          "SSD kernel once")
+    y_ref, s_ref, _ = ref.ssd_chunk_ref(x, dt, a, bb, cc)
+    ssd_rel = 0.0
+    for name, got_t, want_t in (("y", y, y_ref), ("final state", state,
+                                                   s_ref)):
+        err, rel = scaled_err(got_t, want_t)
+        check(math.isfinite(rel) and rel <= SSD_RTOL, f"ops.ssd_chunked vs "
+              f"ref.ssd_chunk_ref: {name} max abs {err:.3e}, scaled "
+              f"{rel:.3e} (limit {SSD_RTOL:.0e})")
+        ssd_rel = max(ssd_rel, rel)
+    del x, dt, a, bb, cc, y, state, y_ref, s_ref
+
+    leaves = {"in_proj": _adam_leaf(torch, math.prod(ADAM_LEAF),
+                                    torch.bfloat16, torch.bfloat16, 23),
+              "A_log": _adam_leaf(torch, 48 * 32, torch.float32,
+                                  torch.bfloat16, 24)}
+    tree = [{k: leaf[i] for k, leaf in leaves.items()} for i in range(4)]
+    lr, t = 1e-3, 1
+    before = adam.LAUNCHES
+    new_p, new_m, new_v = ops.fused_adam_tree(*tree, lr=lr, t=t, b1=ADAM_B1,
+                                              b2=ADAM_B2, eps=ADAM_EPS)
+    torch.cuda.synchronize()
+    check(adam.LAUNCHES - before == len(leaves), "ops.fused_adam_tree did "
+          "not launch the Adam kernel once a leaf")
+    adam_err = 0.0
+    for name, (p0, m0, v0, g0) in leaves.items():
+        wp, wm, wv = ref.adam_ref(p0.float(), m0, v0, g0.float(), lr=lr,
+                                  b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, t=t)
+        ok, err = adam_close(torch, (new_p[name], new_m[name], new_v[name]),
+                             (wp.to(p0.dtype), wm, wv), p_old=p0)
+        check(ok, f"ops.fused_adam_tree vs ref.adam_ref, {name}: max abs p "
+              f"error {err:.3e}, outside the limits")
+        adam_err = max(adam_err, err)
+    print(f"[ops] ops.flash_attention {FLASH_SCORE_SHAPE} bf16 vs "
+          f"ref.attention_ref: max row rel {flash_rel:.3e}; ops.ssd_chunked "
+          f"{SSD_SCORE_SHAPE} vs ref.ssd_chunk_ref over the whole sequence: "
+          f"scaled {ssd_rel:.3e}; ops.fused_adam_tree ({len(leaves)} leaves, "
+          f"g bf16 cast to f32) vs ref.adam_ref: max abs p error "
+          f"{adam_err:.3e}")
+    return dict(flash_row_rel=flash_rel, ssd_scaled=ssd_rel,
+                adam_p_err=adam_err)
+
+
 def ssd_diagonal_dropped(torch, ssd, x, dt, a, b, c):
     """y_intra of the plain version without its j = i terms (a planted
     fault that stays finite)."""
@@ -1709,6 +1792,64 @@ def profile_meta_gradient(torch, mods, model, exp, params, batches):
               f"({e.count})" for e in top))
 
 
+def remat_round(torch, mods, cfg, exp, opt, state, cohorts, batches, mask,
+                device):
+    """One round of the plain step from ``state`` with ``cfg.remat`` True
+    (the config's default: each layer checkpointed) and False, under
+    deterministic algorithms (a scatter-add's atomics would otherwise
+    differ between any two runs): the new params, moments, buffers and
+    grad norm, and the loss and gradient of cohort 0's outer batch (by
+    ``torch.autograd`` and by ``torch.func.grad``), must be bitwise equal.
+    Prints each route's seconds and peak memory above its start."""
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        for remat in (True, False):
+            model = mods.build_model(dataclasses.replace(cfg, remat=remat))
+            step = mods.semi_sync.make_semi_sync_step(model, exp, opt,
+                                                      cohorts)
+            base = _peak_base(torch, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, metrics = step(state, batches, mask)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = _peak_above(torch, device, base)
+            one = mods.tree_map(lambda x: x[0], batches["outer"])
+            leaves = [x.detach().requires_grad_(True)
+                      for x in mods.tree_leaves(state.params)]
+            params = mods.tree_unflatten(state.params, leaves)
+            loss = model.loss(params, one)[0]
+            grads = torch.autograd.grad(loss, leaves)
+            # torch.func runs through the model too (the checkpoint steps
+            # aside inside a transform)
+            func = mods.tree_leaves(torch.func.grad(
+                lambda p: model.loss(p, one)[0])(state.params))
+            out[remat] = ([x for tree in (new.params, new.opt_state,
+                                          new.buffers)
+                           for x in mods.tree_leaves(tree)]
+                          + [metrics["grad_norm"], loss.detach()]
+                          + list(grads) + func, seconds, peak)
+            del new, metrics, loss, grads, leaves, params, func
+    finally:
+        torch.use_deterministic_algorithms(det)
+    for i, (x, y) in enumerate(zip(out[True][0], out[False][0])):
+        check(same_bits(torch, x, y), f"remat: result {i} of the round "
+              f"(params, moments, buffers, grad norm, loss, gradients in "
+              f"order) differs with cfg.remat True and False")
+    print(f"[train] one round of the plain step, cfg.remat True vs False: "
+          f"{len(out[True][0])} results bitwise equal (state, grad norm, "
+          f"loss and gradients by autograd and torch.func on cohort 0's "
+          f"batch); seconds "
+          f"{out[True][1]:.2f} vs {out[False][1]:.2f}; peak memory above the "
+          f"round's start {out[True][2]:.2f} GiB vs {out[False][2]:.2f} GiB")
+    return dict(seconds=(out[True][1], out[False][1]),
+                peak_gib=(out[True][2], out[False][2]))
+
+
 def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
                       device="cuda"):
     """``train_e2e``'s round loop on mamba2-370m (bf16, attn_impl "xla":
@@ -1768,6 +1909,11 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
           f"batch {bsz}, seq {seq}, server Adam: rounds "
           f"{', '.join(f'{s:.2f}' for s in seconds)} s; loss on cohort 0's "
           f"batch {loss:.4f}; peak memory {peak:.1f} GiB")
+    remat = remat_round(torch, mods, cfg, exp, opt, state, cohorts,
+                        e2e.round_batches(kw["corpora"], rounds, batch=bsz,
+                                          seq=seq, device=device),
+                        torch.as_tensor(pi[rounds], dtype=torch.float32,
+                                        device=device), device)
     if device == "cuda":
         profile_meta_gradient(torch, mods, model, exp, state.params,
                               e2e.round_batches(kw["corpora"], rounds,
@@ -1812,7 +1958,7 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
     print(f"[train] launch.train --mode scale --arch mamba2_370m --steps 3: "
           f"{t_scale:.1f} s")
     del st_s
-    return sum(per_round), per_round, seconds, peak, adam_err, eq8
+    return sum(per_round), per_round, seconds, peak, adam_err, eq8, remat
 
 
 # ---------------------------------------------------------------------------
@@ -3164,15 +3310,21 @@ def phase_serve_zoo(torch, mods, arch, *, reduce=False, device="cuda"):
 # ---------------------------------------------------------------------------
 
 # the dry run's production-mesh cases: (arch, shape, mesh, moe impl)
-DRYRUN_CASES = (("yi_6b", "train_4k", "single_pod", "gather"),
-                ("yi_6b", "train_4k", "multi_pod", "gather"),
-                ("mixtral_8x22b", "train_4k", "single_pod", "ep"),
-                ("llama32_vision_11b", "decode_32k", "single_pod", "gather"))
+# (arch, shape, mesh, moe impl, levers); yi-6b's train_4k runs twice, the
+# second time without activation checkpointing
+DRYRUN_CASES = (("yi_6b", "train_4k", "single_pod", "gather", ()),
+                ("yi_6b", "train_4k", "single_pod", "gather", ("no_remat",)),
+                ("yi_6b", "train_4k", "multi_pod", "gather", ()),
+                ("mixtral_8x22b", "train_4k", "single_pod", "ep", ()),
+                ("llama32_vision_11b", "decode_32k", "single_pod", "gather",
+                 ()))
 DRYRUN_TIMEOUT_S = 600
 # π of the two rounds: the same two cohorts twice, so the second round's
 # Eq. 8 applies the gradients the first one buffered
 SPMD_MASKS = ([1.0, 1.0, 0.0, 0.0], [1.0, 1.0, 0.0, 0.0])
 SPMD_MOE_LAYERS = 2
+# the server-Adam rounds on the mesh, cut for time (12 of mamba2's 48)
+SPMD_ADAM_LAYERS = 12
 # EP against gather: the JAX package's own limits (tests/test_moe_ep.py)
 EP_ROW_RTOL, EP_AUX_ATOL = 1e-4, 1e-5
 
@@ -3182,14 +3334,21 @@ def start_dryrun(out_dir):
     group cannot share a process with NCCL's), all at once, off the card."""
     env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
     procs = []
-    for arch, shape, mesh, impl in DRYRUN_CASES:
+    for arch, shape, mesh, impl, opts in DRYRUN_CASES:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--mesh", mesh, "--moe-impl", impl,
-               "--out", out_dir, "--tag", "chip"]
+               "--out", out_dir, "--tag", _dryrun_tag(opts)]
+        for lever in opts:
+            cmd += ["--opt", lever]
         procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True,
-                                       env=env), (arch, shape, mesh, impl)))
+                                       env=env),
+                      (arch, shape, mesh, impl, opts)))
     return procs
+
+
+def _dryrun_tag(opts):
+    return "_".join(("chip",) + tuple(opts))
 
 
 def finish_dryrun(procs, out_dir, smi, t_start):
@@ -3197,7 +3356,7 @@ def finish_dryrun(procs, out_dir, smi, t_start):
     print each record on one line."""
     recs = []
     try:
-        for proc, (arch, shape, mesh, impl) in procs:
+        for proc, (arch, shape, mesh, impl, opts) in procs:
             left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
                                                  - t_start))
             try:
@@ -3207,17 +3366,23 @@ def finish_dryrun(procs, out_dir, smi, t_start):
                       f"{DRYRUN_TIMEOUT_S} s")
             check(proc.returncode == 0, f"dry run {arch} {shape} {mesh} "
                   f"failed:\n{err[-3000:]}")
-            with open(os.path.join(out_dir, f"chip_{arch}_{shape}_"
-                                   f"{mesh.split('_')[0]}.json")) as f:
+            with open(os.path.join(out_dir, f"{_dryrun_tag(opts)}_{arch}_"
+                                   f"{shape}_{mesh.split('_')[0]}.json")) as f:
                 rec = json.load(f)
-            check(rec["status"] == "ok" and rec["flops"] > 0,
+            mem = rec.get("memory", {})
+            check(rec["status"] == "ok" and rec["flops"] > 0
+                  and mem["peak_bytes"] >= mem["argument_bytes"]
+                  and mem["temp_bytes"] >= 0,
                   f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
             coll = rec["collectives"]["bytes_by_kind"]
             rf = rec["roofline"]
-            print(f"[dryrun] {arch} {shape} {mesh} (moe {impl}), "
+            print(f"[dryrun] {arch} {shape} {mesh} (moe {impl}"
+                  f"{''.join(', ' + o for o in opts)}), "
                   f"{rec['n_devices']} ranks, one rank: args "
-                  f"{rec['memory']['argument_bytes']} B (params "
-                  f"{rec['memory']['param_bytes']} B), FLOPs "
+                  f"{mem['argument_bytes']} B (params "
+                  f"{mem['param_bytes']} B), peak {mem['peak_bytes']} B "
+                  f"({mem['peak_bytes'] / 2**30:.2f} GiB), temp "
+                  f"{mem['temp_bytes']} B, FLOPs "
                   f"{rec['flops']:.4e}, bytes accessed "
                   f"{rec['bytes_accessed']:.4e}, collectives "
                   f"{json.dumps(coll)}; roofline on H100 SXM5 rates: compute "
@@ -3247,15 +3412,16 @@ def _nccl_world(torch):
 
 
 def _last_eq8(agg):
-    """Wrap Eq. 8's flat entry point to keep a copy of the last launch's
-    inputs (the launch count stays the wrapper's own)."""
-    last = {}
+    """Wrap Eq. 8's flat entry point to keep a host copy of the inputs of
+    the last launch made while ``last["armed"]`` is set (the launch count
+    stays the wrapper's own).  On the host, so that the copy (9.4 GB of
+    f32 at mamba2's full size) is no part of the card's peak memory."""
+    last = {"armed": False}
     orig = agg.stale_aggregate_flat
 
     def recording(params, buffers, mask, *, beta):
-        if params.is_cuda:
-            last.clear()
-            last["args"] = (params.clone(), buffers.clone(), mask.clone(),
+        if params.is_cuda and last["armed"]:
+            last["args"] = (params.cpu(), buffers.cpu(), mask.cpu(),
                             float(beta))
         return orig(params, buffers, mask, beta=beta)
 
@@ -3267,7 +3433,8 @@ def hold_eq8_spmd(torch, agg, args):
     """Eq. 8 against its plain version on the mesh path's own last launch;
     the check must reject the plain version with one arriving cohort's
     weight dropped.  Timed once beside the plain version and the bound."""
-    p, buf, mask, beta = args
+    p, buf, mask = (x.cuda() for x in args[:3])
+    beta = args[3]
     n, c = int(p.shape[0]), int(buf.shape[0])
     got = agg.stale_aggregate_flat(p, buf, mask, beta=beta)
     want = agg.stale_aggregate_plain(p, buf, mask, beta=beta)
@@ -3288,6 +3455,56 @@ def hold_eq8_spmd(torch, agg, args):
     bound, by = _bound((c + 2) * n * 4 + c * 4, 2 * c * n + n,
                        H100_F32_FLOPS)
     return dict(n=n, c=c, max_abs_err=err, fault_err=fault, ms=t_kernel,
+                plain_ms=t_plain, bound_ms=bound, bound_by=by)
+
+
+def _last_adam(adam):
+    """Wrap the fused Adam launch (``fused_adam._update``, which the tree's
+    mesh route runs on each local shard) to keep the last launch's inputs
+    and outputs while ``last["armed"]`` is set: p, m, v, the scalars and
+    the outputs by reference (the old and new state hold them anyway), the
+    gradient, which the round frees, as a host copy."""
+    last = {"armed": False}
+    orig = adam._update
+
+    def recording(p, m, v, g, scal, *, b1, b2, eps):
+        out = orig(p, m, v, g, scal, b1=b1, b2=b2, eps=eps)
+        if p.is_cuda and last["armed"]:
+            last.update(args=(p, m, v, g.cpu(), scal), out=out)
+        return out
+
+    adam._update = recording
+    return last, orig
+
+
+def hold_adam_spmd(torch, adam, last):
+    """The fused Adam kernel against its plain version on the mesh path's
+    own last launch (a local shard's p, m, v, g and [lr, bc1, bc2]); the
+    plain version with the bias corrections dropped must be rejected.
+    Timed once beside the plain version and the bound."""
+    p, m, v, g, scal = last["args"]
+    g = g.cuda()
+    want = adam.fused_adam_plain(p, m, v, g, scal, b1=ADAM_B1, b2=ADAM_B2,
+                                 eps=ADAM_EPS)
+    ok, err = adam_close(torch, last["out"], want)
+    n = int(p.numel())
+    check(ok, f"spmd fused Adam at N={n}: kernel vs its plain version "
+          f"outside the limits (max abs p error {err:.3e})")
+    no_bc = torch.stack([scal[0], torch.ones_like(scal[1]),
+                         torch.ones_like(scal[2])])
+    bad, fault_err = adam_close(torch, adam.fused_adam_plain(
+        p, m, v, g, no_bc, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), want)
+    check(not bad, "spmd fused Adam: the check accepts the planted fault "
+          "'bias corrections dropped'")
+    flat = [x.reshape(-1) for x in (p, m, v, g)]
+    t_kernel = device_ms(torch, lambda: adam._update(
+        *flat, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), reps=3, trials=5)
+    t_plain = device_ms(torch, lambda: adam.fused_adam_plain(
+        *flat, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), reps=1, trials=3)
+    nbytes = n * (2 * p.element_size() + g.element_size() + 16)
+    bound, by = _bound(nbytes, 14 * n, H100_F32_FLOPS)
+    return dict(n=n, p_dtype=str(p.dtype).replace("torch.", ""),
+                max_abs_err=err, fault_err=fault_err, ms=t_kernel,
                 plain_ms=t_plain, bound_ms=bound, bound_by=by)
 
 
@@ -3316,17 +3533,73 @@ def same_bits(torch, a, b):
     return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
+def _alloc_site(frames):
+    """The innermost frame of an allocation's Python stack in this
+    repository's code, as "file:line function"."""
+    for f in frames:
+        name = f.get("filename", "")
+        if "repro_torch" in name or name.endswith("chip_smoke.py"):
+            short = name.split("src/")[-1] if "repro_torch" in name \
+                else "chip_smoke.py"
+            return f"{short}:{f.get('line')} {f.get('name')}"
+    return "(no Python frame: autograd's device thread)" if not frames \
+        else "(outside the repository's code)"
+
+
+def memory_split(snapshot):
+    """Replay the allocator's trace of one recorded round: (the most bytes
+    allocated in the round live at once, {allocation site: its bytes live
+    at that moment}).  Blocks allocated before the recording are not in
+    the trace; their frees are skipped."""
+    events = [e for trace in snapshot["device_traces"] for e in trace]
+    live, total, peak, at = {}, 0, 0, -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            total += e["size"]
+            if total > peak:
+                peak, at = total, i
+        elif e["action"] in ("free_requested", "free_completed"):
+            total -= live.pop(e["addr"], 0)
+    live = {}
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], _alloc_site(e.get("frames", [])))
+        elif e["action"] in ("free_requested", "free_completed"):
+            live.pop(e["addr"], None)
+    sites = collections.Counter()
+    for size, site in live.values():
+        sites[site] += size
+    return peak, dict(sites)
+
+
 def _spmd_rounds(torch, mods, step, state, corpora, *, bsz, seq, device,
-                 mesh=None, rules=None):
-    """``SPMD_MASKS``' rounds from ``state``: (state, seconds a round, a
-    copy of the buffers after the first round)."""
-    seconds, first = [], None
+                 mesh=None, rules=None, on_last=None, count=None,
+                 record=False, keep_first=True, base=0):
+    """``SPMD_MASKS``' rounds from ``state``.  Returns (state, seconds a
+    round, a copy of the buffers after the first round or None, extras):
+    ``on_last()`` runs before the last round; ``count()`` (a launch
+    counter) gives extras["launches"] a round; ``record`` takes an
+    allocator snapshot of the last round on the card (extras["start_gib"]:
+    allocated at its start above ``base`` bytes, extras["split"]:
+    ``memory_split``)."""
+    seconds, first, extras = [], None, {"launches": []}
     for k, m in enumerate(SPMD_MASKS):
+        last = k == len(SPMD_MASKS) - 1
         batches = mods.train_e2e.round_batches(corpora, k, batch=bsz,
                                                seq=seq, device=device)
         mask = torch.tensor(m, dtype=torch.float32, device=device)
+        if last and on_last is not None:
+            on_last()
+        recording = last and record and device == "cuda"
         if device == "cuda":
             torch.cuda.synchronize()
+            if recording:
+                extras["start_gib"] = (torch.cuda.memory_allocated()
+                                       - base) / 2**30
+                torch.cuda.memory._record_memory_history(
+                    context="alloc", stacks="python", max_entries=4_000_000)
+        before = count() if count else 0
         t0 = time.perf_counter()
         with (mods.sharding.use_mesh(mesh, rules) if mesh is not None
               else contextlib.nullcontext()):
@@ -3334,21 +3607,61 @@ def _spmd_rounds(torch, mods, step, state, corpora, *, bsz, seq, device,
         if device == "cuda":
             torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        if first is None:
+        if count:
+            extras["launches"].append(count() - before)
+        if recording:
+            snap = torch.cuda.memory._snapshot()
+            torch.cuda.memory._record_memory_history(enabled=None)
+            extras["split"] = memory_split(snap)
+            del snap
+        if first is None and keep_first:
             first = [(x.to_local() if hasattr(x, "to_local") else x).clone()
                      for x in mods.tree_leaves(state.buffers)]
-    return state, seconds, first
+    return state, seconds, first, extras
+
+
+def _print_split(mesh_ex, plain_ex, smi, what=""):
+    """The last round's allocations by site in both routes: each route's
+    allocated bytes at the round's start and the most its allocations held
+    at once, then the sites whose bytes at that moment differ most."""
+    if "split" not in mesh_ex:
+        return None
+    (m_peak, m_sites), (p_peak, p_sites) = mesh_ex["split"], \
+        plain_ex["split"]
+    gib = 2.0 ** 30
+    for name, ex, peak, sites in (("mesh", mesh_ex, m_peak, m_sites),
+                                  ("plain", plain_ex, p_peak, p_sites)):
+        top = sorted(sites.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[spmd] memory{what}, round 2 of the {name} route: "
+              f"{ex['start_gib']:.2f} GiB allocated at its start above the "
+              f"route's; its allocations peak at "
+              f"{peak / gib:.2f} GiB, then held by " + "; ".join(
+                  f"{site} {b / gib:.2f} GiB" for site, b in top)
+              + f" [{smi}]")
+    diff = {s: m_sites.get(s, 0) - p_sites.get(s, 0)
+            for s in set(m_sites) | set(p_sites)}
+    top = sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:5]
+    print(f"[spmd] memory{what}, round 2, mesh less plain: at the start "
+          f"{mesh_ex['start_gib'] - plain_ex['start_gib']:+.2f} GiB, at the "
+          f"allocations' peak {(m_peak - p_peak) / gib:+.2f} GiB; by site: "
+          + "; ".join(f"{site} {b / gib:+.3f} GiB" for site, b in top))
+    return dict(start_gib=(mesh_ex["start_gib"], plain_ex["start_gib"]),
+                round_peak_gib=(m_peak / gib, p_peak / gib),
+                sites_gib={s: b / gib for s, b in top})
 
 
 def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
-                     device="cuda"):
+                     device="cuda", adam=None):
     """mamba2-370m at full width and depth, ``train_e2e``'s settings (4
     cohorts, A 2, S 2, batch 4, seq 256, β-SGD through the fused Eq.-8
     path): 2 rounds with the state as DTensors placed by
     ``state_shardings`` on the mesh, then 2 rounds of the plain step from
     the same state and batches; params, buffers and staleness bitwise
     equal; Eq. 8 launched once a round on the mesh, its last launch held
-    against the plain version."""
+    against the plain version; the allocator's trace of round 2 in both
+    routes split by allocation site.  Then the same for the server Adam
+    (``_spmd_adam``; ``adam`` the fused Adam module, taken from the port
+    when not given)."""
     cfg = mods.get_config("mamba2_370m")
     cohorts, stale, bsz, seq = 4, 2, 4, 256
     if reduce:
@@ -3372,13 +3685,14 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
     with mods.sharding.use_mesh(mesh, rules):
         st_mesh = mods.semi_sync.init_state(model, gen(), sgd, cohorts,
                                             mesh=mesh, rules=rules)
-    p0 = [x.to_local().clone() for x in mods.tree_leaves(st_mesh.params)]
+    p0 = [x.to_local().cpu() for x in mods.tree_leaves(st_mesh.params)]
     last, orig = _last_eq8(agg)
     try:
         agg.LAUNCHES = 0
-        st_mesh, mesh_s, first_mesh = _spmd_rounds(
+        st_mesh, mesh_s, first_mesh, mesh_ex = _spmd_rounds(
             torch, mods, step, st_mesh, corpora, bsz=bsz, seq=seq,
-            device=device, mesh=mesh, rules=rules)
+            device=device, mesh=mesh, rules=rules,
+            on_last=lambda: last.update(armed=True), record=True, base=base)
         launches = agg.LAUNCHES
     finally:
         agg.stale_aggregate_flat = orig
@@ -3386,9 +3700,9 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
     base = _peak_base(torch, device)
     st_plain = mods.semi_sync.init_state(model, gen(), sgd, cohorts)
     before = agg.LAUNCHES
-    st_plain, plain_s, first_plain = _spmd_rounds(
+    st_plain, plain_s, first_plain, plain_ex = _spmd_rounds(
         torch, mods, step, st_plain, corpora, bsz=bsz, seq=seq,
-        device=device)
+        device=device, record=True, base=base)
     plain_launches = agg.LAUNCHES - before
     peak_plain = _peak_above(torch, device, base)
 
@@ -3419,7 +3733,7 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
           "spmd: staleness differs")
     check(not any(k.startswith("params/") for k in nonfinite),
           f"spmd: non-finite params {nonfinite}")
-    moved = any(not torch.equal(local(x), y) for x, y in zip(
+    moved = any(not torch.equal(local(x).cpu(), y) for x, y in zip(
         mods.tree_leaves(st_mesh.params), p0))
     check(moved, "spmd: two rounds left the params where they started")
     want = mods.specs.state_shardings(st_plain, mods.sharding.param_placements(
@@ -3433,6 +3747,7 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
               f"spmd: Eq. 8 launched {launches} times on the mesh and "
               f"{plain_launches} unsharded, not once a round")
         row = hold_eq8_spmd(torch, agg, last["args"])
+    del st_mesh, st_plain, p0, last
     overhead = [m / p - 1.0 for m, p in zip(mesh_s, plain_s)]
     print(f"[spmd] {cfg.name}, {cohorts} cohorts, A 2, S {stale}, batch "
           f"{bsz}, seq {seq}, masks {list(SPMD_MASKS)}: mesh "
@@ -3446,15 +3761,122 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
           f"{sum(nonfinite.values())} in {len(nonfinite)} leaves); "
           f"Eq.-8 launches {launches} on the mesh "
           f"({plain_launches} unsharded); peak memory above each route's "
-          f"start: mesh {peak:.1f} GiB, plain {peak_plain:.1f} GiB [{smi}]")
+          f"start: mesh {peak:.2f} GiB, plain {peak_plain:.2f} GiB [{smi}]")
     if row:
         print(f"[spmd] Eq. 8 on the mesh path's last launch N={row['n']} "
               f"C={row['c']}: err {row['max_abs_err']:.3e}, planted fault "
               f"{row['fault_err']:.3e} rejected; kernel {row['ms']:.3f} ms, "
               f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
               f"ms [{smi}]")
+    split = _print_split(mesh_ex, plain_ex, smi)
+    if adam is None:
+        from repro_torch.kernels import fused_adam as adam
+    del model
+    adam_res = _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen,
+                          smi, cohorts=cohorts, stale=stale, bsz=bsz,
+                          seq=seq, device=device)
     return dict(launches=launches, mesh_s=mesh_s, plain_s=plain_s,
-                peak_gib=peak, plain_peak_gib=peak_plain, row=row)
+                peak_gib=peak, plain_peak_gib=peak_plain, row=row,
+                split=split, adam=adam_res)
+
+
+def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
+               cohorts, stale, bsz, seq, device):
+    """``SPMD_MASKS``' two rounds of the step with the server Adam
+    (``train_e2e``'s ``--server-opt adam`` settings: masked mean, clip 1.0,
+    Adam at β), DTensor state on the mesh against the plain step: params,
+    moments, t, buffers and staleness bitwise; the fused Adam kernel
+    launched once a leaf a round in both routes (on the mesh on each
+    leaf's local shard), the mesh route's last launch held against the
+    plain version; round 2's allocations split by site in both routes.
+    Round 1 applies round 0's meta-gradients (round 0's aggregate is the
+    zero-initialised buffers).  Full width, depth cut to
+    ``SPMD_ADAM_LAYERS`` of the 48 layers for time (the tree keeps its 12
+    leaves, each stacked over the layers)."""
+    cfg = dataclasses.replace(cfg, num_layers=min(cfg.num_layers,
+                                                  SPMD_ADAM_LAYERS))
+    model = mods.build_model(cfg)
+    exp = mods.train_e2e.experiment_cfg(cfg, staleness=stale,
+                                        fused_agg=False)
+    opt = mods.make_optimizer("adam")
+    step = mods.semi_sync.make_semi_sync_step(model, exp, opt, cohorts)
+    kw = dict(bsz=bsz, seq=seq, device=device, keep_first=False,
+              count=lambda: adam.LAUNCHES, record=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    base = _peak_base(torch, device)
+    with mods.sharding.use_mesh(mesh, rules):
+        st_mesh = mods.semi_sync.init_state(model, gen(), opt, cohorts,
+                                            mesh=mesh, rules=rules)
+    last, orig = _last_adam(adam)
+    try:
+        st_mesh, mesh_s, _, mesh_ex = _spmd_rounds(
+            torch, mods, step, st_mesh, corpora, mesh=mesh, rules=rules,
+            on_last=lambda: last.update(armed=True), base=base, **kw)
+    finally:
+        adam._update = orig
+    peak = _peak_above(torch, device, base)
+    base = _peak_base(torch, device)
+    st_plain = mods.semi_sync.init_state(model, gen(), opt, cohorts)
+    st_plain, plain_s, _, plain_ex = _spmd_rounds(
+        torch, mods, step, st_plain, corpora, base=base, **kw)
+    peak_plain = _peak_above(torch, device, base)
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    # the update's outputs must be finite; the buffers (meta-gradients at
+    # the moved params) are compared by bit pattern, non-finite ones
+    # counted, as in the fused rounds
+    nonfinite = 0
+    for what, a, b in (("params", st_mesh.params, st_plain.params),
+                       ("opt_state", st_mesh.opt_state, st_plain.opt_state),
+                       ("buffers", st_mesh.buffers, st_plain.buffers)):
+        for path, x, y in zip(mods.tree_paths(a), mods.tree_leaves(a),
+                              mods.tree_leaves(b)):
+            bad = int((~torch.isfinite(y.float())).sum())
+            check(same_bits(torch, local(x), y) and (
+                what == "buffers" or not bad), f"spmd adam: {what} {path} "
+                f"of the mesh route differ from the plain step's, or are "
+                f"not finite")
+            nonfinite += bad
+    check(same_bits(torch, local(st_mesh.staleness), st_plain.staleness),
+          "spmd adam: staleness differs")
+    n_leaves = len(mods.tree_leaves(st_plain.params))
+    row = None
+    if device == "cuda":
+        want = [n_leaves] * len(SPMD_MASKS)
+        check(mesh_ex["launches"] == want and plain_ex["launches"] == want,
+              f"spmd adam: fused Adam launches a round {mesh_ex['launches']}"
+              f" on the mesh, {plain_ex['launches']} unsharded, not "
+              f"{n_leaves} (one a leaf)")
+        row = hold_adam_spmd(torch, adam, last)
+    t = int(local(st_mesh.opt_state["t"]))
+    del st_mesh, st_plain, last
+    print(f"[spmd] {cfg.name} at {cfg.num_layers} layers, server Adam "
+          f"(clip {exp.train.grad_clip}, lr β {exp.fl.beta}), masks "
+          f"{list(SPMD_MASKS)}: DTensor state "
+          f"s/round {', '.join(f'{s:.3f}' for s in mesh_s)}; plain step "
+          f"{', '.join(f'{s:.3f}' for s in plain_s)}; params, m, v, t "
+          f"({t}), buffers and staleness bitwise equal ({nonfinite} "
+          f"non-finite buffer elements in both); fused Adam launches "
+          f"a round {mesh_ex['launches']} on the mesh (local shards), "
+          f"{plain_ex['launches']} unsharded; peak memory above each "
+          f"route's start: mesh {peak:.2f} GiB, plain {peak_plain:.2f} GiB "
+          f"[{smi}]")
+    if row:
+        print(f"[spmd] fused Adam on the mesh path's last launch N="
+              f"{row['n']} (p {row['p_dtype']}): max abs p err "
+              f"{row['max_abs_err']:.3e}, planted fault 'bias corrections "
+              f"dropped' {row['fault_err']:.3e} rejected; kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}) [{smi}]")
+    split = _print_split(mesh_ex, plain_ex, smi, " (server Adam)")
+    return dict(layers=cfg.num_layers, split=split,
+                launches=sum(mesh_ex["launches"]),
+                launches_a_round=mesh_ex["launches"], mesh_s=mesh_s,
+                plain_s=plain_s, peak_gib=peak, plain_peak_gib=peak_plain,
+                row=row)
 
 
 def phase_spmd_mixtral(torch, fa, mods, mesh, smi, *, reduce=False,
@@ -3531,11 +3953,12 @@ def phase_spmd_mixtral(torch, fa, mods, mesh, smi, *, reduce=False,
                 call_rel=call_rel)
 
 
-def phase_spmd(torch, agg, fa, mods, smi):
-    """Slice 10 on the card: the dry run's four production-mesh cases start
-    in their own processes; meanwhile, on a world-1 NCCL mesh (pod 1, data
-    1, model 1), the sharded mamba2 step against the plain one and
-    Mixtral's EP against gather."""
+def phase_spmd(torch, agg, fa, adam, mods, smi):
+    """Slice 10 on the card: the dry run's production-mesh cases
+    (``DRYRUN_CASES``) start in their own processes; meanwhile, on a world-1
+    NCCL mesh (pod 1, data 1, model 1), the sharded mamba2 step against the
+    plain one, fused Eq. 8 and then the server Adam, and Mixtral's EP
+    against gather."""
     out_dir = os.path.join(ROOT, "build", "dryrun")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
@@ -3549,7 +3972,7 @@ def phase_spmd(torch, agg, fa, mods, smi):
         try:
             mesh = mods.mesh.make_host_mesh(1, 1, pods=1)
             mamba = timed("spmd: mamba2 step", phase_spmd_mamba, torch, agg,
-                          mods, mesh, smi)
+                          mods, mesh, smi, adam=adam)
             mixtral = timed("spmd: mixtral ep", phase_spmd_mixtral, torch,
                             fa, mods, mesh, smi)
         finally:
@@ -3577,6 +4000,7 @@ def import_port():
     from repro_torch.data.synthetic import synthetic_lm_corpus
     from repro_torch.fl.engine import SimulationEngine
     from repro_torch.fl.simulation import run_simulation
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.stale_aggregate import masked_aggregate_tree
     from repro_torch import sharding
     from repro_torch.launch import mesh, serve, specs, train, train_e2e
@@ -3587,7 +4011,7 @@ def import_port():
     from repro_torch.optim.optimizers import adam_update_plain
     from repro_torch.utils.metrics import read_metrics
     from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
-                                        tree_paths)
+                                        tree_paths, tree_unflatten)
     return types.SimpleNamespace(**locals())
 
 
@@ -3634,6 +4058,8 @@ def main():
                      torch, ssd)
     adam_rows = timed("kernel vs plain (fused Adam)", phase_adam_vs_plain,
                       torch, adam)
+    timed("ops vs ref", phase_ops, torch, fa, ssd, adam, mods)
+    torch.cuda.empty_cache()
     launches, seen = timed("main path (slice 1)", phase_main_path, torch,
                            agg, mods)
     timed("scale point", phase_scale, torch, agg, mods)
@@ -3679,7 +4105,8 @@ def main():
     adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
                               agg, mods)
     torch.cuda.empty_cache()
-    spmd = timed("spmd (slice 10)", phase_spmd, torch, agg, fa, mods, smi)
+    spmd = timed("spmd (slice 10)", phase_spmd, torch, agg, fa, adam, mods,
+                 smi)
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in JAX or the JAX package")
@@ -3716,7 +4143,15 @@ def main():
          "shape": [adam_shape[0]],
          "dtype": f"p {adam_shape[1]}, g {adam_shape[2]}, m/v float32",
          "library": "torch.optim.Adam(fused=True).step() on an f32 copy",
-         **adam_row},
+         **adam_row,
+         "spmd": {
+             "path": f"mamba2-370m semi-sync step (full width, "
+                     f"{spmd['mamba']['adam']['layers']} layers) with the "
+                     f"server Adam and DTensor state on a world-1 NCCL "
+                     f"mesh, 2 rounds, one launch a leaf a round on its "
+                     f"local shard through local_map",
+             "launches": spmd["mamba"]["adam"]["launches"],
+             **(spmd["mamba"]["adam"]["row"] or {})}},
         {"name": "flash_attention_bhld", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:75",

@@ -29,6 +29,10 @@ of DTensors placed by ``launch/specs.state_shardings`` on a
   rank then holds all C rows of its own param shard, so the cohort sum
   stays local), then runs ``stale_aggregate_flat`` once a round on each
   rank's local shards through ``local_map``: Eq. 8 is elementwise over N;
+* otherwise the masked mean is taken on the local shards alike, placed
+  like the params; clipping takes the norm over every shard of every leaf,
+  and the server Adam runs its kernel once a leaf on the local shards
+  (``fused_adam_tree``'s mesh route);
 * each pod computes the meta-gradients of its own cohorts, one at a time,
   on the (data, model) sub-mesh, and writes its own buffer rows; params,
   buffers and batches stay sharded throughout.
@@ -141,10 +145,20 @@ def _mesh_of(tree):
     return leaf.device_mesh if isinstance(leaf, DTensor) else None
 
 
+@contextlib.contextmanager
 def _on_mesh(mesh):
-    """The params' mesh active (with the rules in force), or nothing."""
-    return contextlib.nullcontext() if mesh is None \
-        else sharding.use_mesh(mesh, sharding.active_rules())
+    """The params' mesh active (with the rules in force), or nothing.  On
+    a mesh the step's backward passes run on the calling thread: the
+    recomputation of checkpointed layers (``cfg.remat``) on DTensors on
+    autograd's device thread gave gradients that changed from run to run
+    on the card (torch 2.11, mamba2 at 8 layers and more); on the calling
+    thread they are bitwise the plain step's."""
+    if mesh is None:
+        yield
+        return
+    with sharding.use_mesh(mesh, sharding.active_rules()), \
+            torch.autograd.set_multithreading_enabled(False):
+        yield
 
 
 def _local(x):
@@ -315,10 +329,6 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
                                                mask, beta=fl.beta))
                 new_opt = state.opt_state
             else:
-                if mesh is not None and optimizer.name == "adam":
-                    raise NotImplementedError(
-                        "the server Adam on a mesh is not ported: its "
-                        "fused kernel takes local tensors")
                 agg = (masked_aggregate_tree(state.buffers, mask)
                        if mesh is None else _masked_aggregate_mesh(
                            state.params, state.buffers, mask))

@@ -11,8 +11,11 @@ note gives the design.
 * ``fused_adam_flat``  — the wrapper: a CPU tensor takes the plain version,
   a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts
   launches.
-* ``fused_adam_tree``  — the counterpart of the reference's
-  ``kernels/ops.py::fused_adam_tree``: one ``fused_adam_flat`` per leaf.
+* ``fused_adam_tree``  — one ``fused_adam_flat`` per leaf.  On a tree of
+  DTensors (the server Adam on a mesh) each rank runs it once a leaf on
+  its local shards through ``local_map``: Adam is elementwise, and p, m,
+  v and g of a leaf are placed alike (m and v are made ``zeros_like`` p,
+  the aggregate is placed like the params), so the local shards line up.
 
 lr and the bias corrections ``bc = 1 − b^t`` are computed in f32 on the
 tensors' device (``t`` may be a device tensor) and reach the kernel as a
@@ -27,7 +30,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels._build import CSRC, build_library
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 SOURCE = CSRC / "fused_adam.cu"
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -153,7 +156,11 @@ def fused_adam_tree(params, m, v, grads, *, lr, t, b1: float = 0.9,
                     b2: float = 0.95, eps: float = 1e-8):
     """Tree fused Adam: ``fused_adam_flat`` leaf by leaf (one launch per
     leaf on the card).  Returns new (params, m, v) trees; g is read in its
-    own dtype."""
+    own dtype.  DTensor leaves take ``_fused_adam_mesh``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree_leaves(params)[0], DTensor):
+        return _fused_adam_mesh(params, m, v, grads, lr=lr, t=t, b1=b1,
+                                b2=b2, eps=eps)
     scal = None
 
     def upd(p, mi, vi, g):
@@ -168,3 +175,47 @@ def fused_adam_tree(params, m, v, grads, *, lr, t, b1: float = 0.9,
     # tuples are leaves to tree_map: one (p, m, v) triple per leaf
     trio = tree_map(upd, params, m, v, grads)
     return tuple(tree_map(lambda r, i=i: r[i], trio) for i in range(3))
+
+
+def _fused_adam_mesh(params, m, v, grads, *, lr, t, b1, b2, eps):
+    """``fused_adam_tree`` on DTensors: one ``[lr, bc1, bc2]`` from the
+    replicated ``t``, then the kernel once a leaf on each rank's local
+    shards through ``local_map`` (no autograd: the update is first order).
+    Every leaf's p, m, v and g must share placements and split evenly."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import check_even
+    leaves = [tree_leaves(x) for x in (params, m, v, grads)]
+    for p, *rest in zip(*leaves):
+        if any(tuple(x.placements) != tuple(p.placements) for x in rest):
+            raise ValueError(
+                f"fused_adam on a mesh: p, m, v and g of a leaf must be "
+                f"placed alike, got {[tuple(x.placements) for x in (p, *rest)]}")
+        check_even(p)
+    if isinstance(t, DTensor):
+        if not all(pl.is_replicate() for pl in t.placements):
+            raise ValueError(f"fused_adam on a mesh: t must be replicated, "
+                             f"got {t.placements}")
+        t = t.to_local()
+    p0 = leaves[0][0]
+    scal = adam_scalars(lr, t, b1, b2, p0.to_local().device)
+
+    def local_adam(pl, ml, vl, gl):
+        out = []
+        for p, mi, vi, g in zip(pl, ml, vl, gl):
+            flat = (p.reshape(-1), mi.reshape(-1), vi.reshape(-1),
+                    g.reshape(-1))
+            _check(*flat)
+            out.append(_update(*flat, scal, b1=b1, b2=b2, eps=eps))
+        return [r.reshape(p.shape) for i in range(3)
+                for p, r in zip(pl, (o[i] for o in out))]
+
+    placements = tuple(p.placements for p in leaves[0])
+    with torch.no_grad():
+        out = local_map(local_adam, out_placements=placements * 3,
+                        in_placements=placements * 4,
+                        device_mesh=p0.device_mesh)(*leaves)
+    n = len(placements)
+    return tuple(tree_unflatten(params, list(out[i * n:(i + 1) * n]))
+                 for i in range(3))

@@ -11,14 +11,19 @@ meaning is the same:
   * ``memory.argument_bytes`` / ``output_bytes``: the local shards of the
     step's arguments (params, state, batch, cache) and outputs;
     ``memory.param_bytes`` the params' part;
+  * ``memory.peak_bytes``: the most local bytes live at once during the
+    step, arguments included (``op_analysis``'s storage liveness), and
+    ``memory.temp_bytes``: the peak less the argument and output bytes,
+    floored at 0 — where XLA reports its buffer assignment's;
   * ``flops``, ``bytes_accessed`` and ``collectives`` (bytes and counts by
     kind, bytes by mesh axis) from ``op_analysis``;
   * ``roofline``: ``roofline.roofline_report`` on H100 rates.
 
-What the port cannot produce is absent, not 0: XLA's ``temp_bytes`` and
-``peak_bytes``, and compile times.  The step runs on ``meta`` tensors, not
-under ``FakeTensorMode``: DTensor's sharding propagation reads a tensor
-value for some strided shards, which a fake tensor refuses.
+Compile times are absent, not 0: eager torch compiles nothing.  The step
+runs on ``meta`` tensors, not under ``FakeTensorMode``: DTensor's sharding
+propagation reads a tensor value for some strided shards, which a fake
+tensor refuses.  ``--opt no_remat`` sets ``cfg.remat=False`` (no
+activation checkpointing per layer), which raises the peak.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi_6b \\
         --shape train_4k --mesh both --out artifacts/dryrun
@@ -54,8 +59,6 @@ OPT_LEVERS = ("attn_bf16", "moe_ep", "first_order", "no_remat", "cache_rep",
               "tp_only", "dp_only", "donate")
 # the reference's levers that mean nothing for an eager torch step
 NO_MEANING = {
-    "no_remat": "the port applies no activation checkpointing "
-                "(cfg.remat changes nothing), so there is none to turn off",
     "donate": "eager torch has no buffer donation: a step's outputs are "
               "new tensors",
 }
@@ -110,29 +113,40 @@ def lower(cfg, shape, mesh, *, rules: sharding.AxisRules,
     n_devices = 1
     for v in mesh.shape:
         n_devices *= v
+    arg_b, out_b = local_bytes(args), local_bytes(out)
+    peak = counted.pop("peak_bytes")
     rec = {"name": case.name, "n_devices": n_devices,
            "mesh_shape": sharding.mesh_shape(mesh),
-           "memory": {"argument_bytes": local_bytes(args),
-                      "output_bytes": local_bytes(out),
-                      "param_bytes": local_bytes(params)},
+           "memory": {"argument_bytes": arg_b, "output_bytes": out_b,
+                      "param_bytes": local_bytes(params),
+                      "temp_bytes": max(peak - arg_b - out_b, 0),
+                      "peak_bytes": peak},
            **counted}
     rec["roofline"] = roofline_report(rec)
     return rec
+
+
+def apply_levers(cfg, fl: FLConfig, moe_impl: str, opts: tuple):
+    """(cfg, fl, moe_impl) with the levers of ``opts`` that change the
+    model or the step (the rule levers apply in ``run_case``)."""
+    if "attn_bf16" in opts:
+        cfg = dataclasses.replace(cfg, attn_cast_f32=False)
+    if "no_remat" in opts:
+        cfg = dataclasses.replace(cfg, remat=False)
+    if "moe_ep" in opts:
+        moe_impl = "ep"
+    if "first_order" in opts:
+        fl = dataclasses.replace(fl, first_order=True)
+    return cfg, fl, moe_impl
 
 
 def run_case(arch: str, shape_name: str, *, multi_pod: bool,
              moe_impl: str = "gather", perfed_step: bool = True,
              rule_overrides: Optional[Dict[str, Any]] = None,
              opts: tuple = ()) -> Dict[str, Any]:
-    cfg = get_config(arch)
+    cfg, fl, moe_impl = apply_levers(get_config(arch), FLConfig(), moe_impl,
+                                     opts)
     shape = get_shape(shape_name)
-    fl = FLConfig()
-    if "attn_bf16" in opts:
-        cfg = dataclasses.replace(cfg, attn_cast_f32=False)
-    if "moe_ep" in opts:
-        moe_impl = "ep"
-    if "first_order" in opts:
-        fl = dataclasses.replace(fl, first_order=True)
     t0 = time.time()
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                            "mesh": "multi_pod" if multi_pod else "single_pod",
@@ -176,7 +190,9 @@ def summary(rec: Dict[str, Any]) -> str:
     coll = rec["collectives"]["bytes_by_kind"]
     kinds = ", ".join(f"{k}: {v:.3e}" for k, v in sorted(coll.items()))
     rf = rec["roofline"]
-    return (f"args={rec['memory']['argument_bytes'] / 2**30:.2f}GiB "
+    mem = rec["memory"]
+    return (f"args={mem['argument_bytes'] / 2**30:.2f}GiB "
+            f"peak={mem['peak_bytes'] / 2**30:.2f}GiB "
             f"flops={rec['flops']:.3e} "
             f"coll={{{kinds}}} "
             f"compute={rf['compute_s']:.3e}s memory={rf['memory_s']:.3e}s "
@@ -197,7 +213,7 @@ def main(argv=None):
     ap.add_argument("--opt", action="append", default=[],
                     choices=list(OPT_LEVERS),
                     help="perf levers (repeatable): attn_bf16 moe_ep "
-                         "first_order cache_rep tp_only dp_only")
+                         "first_order no_remat cache_rep tp_only dp_only")
     args = ap.parse_args(argv)
     for lever in args.opt:
         if lever in NO_MEANING:

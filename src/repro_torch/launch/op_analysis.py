@@ -18,12 +18,21 @@ it counts them) and records:
   * ``collectives``      — per kind (the reference's names), the result
                            bytes and the count of each c10d functional
                            collective, and the bytes by mesh axis (from the
-                           op's process group).
+                           op's process group);
+  * ``peak_bytes``       — the most bytes live at once: the arguments'
+                           local storages, plus every storage an op's
+                           output brings into being, from its creation
+                           until Python frees it (a ``weakref.finalize``
+                           on the storage; views and in-place results
+                           share a storage and add nothing).  Memory an op
+                           uses inside and frees before it returns is not
+                           seen.
 
 All numbers are one rank's.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -74,7 +83,7 @@ class OpCounter(TorchDispatchMode):
     """Count one rank's FLOPs, bytes and collectives (module docstring).
     ``mesh`` names the axes of the collectives' process groups."""
 
-    def __init__(self, mesh=None):
+    def __init__(self, mesh=None, live=()):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self._flop_registry = flop_registry
@@ -87,6 +96,31 @@ class OpCounter(TorchDispatchMode):
         if mesh is not None:
             for i, name in enumerate(mesh.mesh_dim_names):
                 self._axis_of[mesh.get_group(i).group_name] = name
+        # storage id -> bytes of every storage live now (``live``: tensors
+        # that exist before the step, its arguments)
+        self._storages: Dict[int, int] = {}
+        self.live_bytes = 0
+        for t in tree_flatten(live)[0]:
+            self._track(t)
+        self.peak_bytes = self.live_bytes
+
+    def _track(self, t) -> None:
+        """Count ``t``'s storage from now until it is freed, once."""
+        from torch.distributed.tensor import DTensor
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        if not isinstance(t, torch.Tensor):
+            return
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._storages:
+            return
+        self._storages[key] = st.nbytes()
+        self.live_bytes += st.nbytes()
+        weakref.finalize(st, self._free, key).atexit = False
+
+    def _free(self, key) -> None:
+        self.live_bytes -= self._storages.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -96,6 +130,9 @@ class OpCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # let DTensor desugar to local ops
         out = func(*args, **kwargs)
+        for t in tree_flatten(out)[0]:
+            self._track(t)
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
         packet = func._overloadpacket
         if func.namespace in _FUNCOL_NS:
             kind = KINDS.get(packet.__name__)
@@ -128,6 +165,7 @@ class OpCounter(TorchDispatchMode):
                                   for k, v in self.axis_bytes.items()},
                 "total_bytes": float(sum(self.coll_bytes.values())),
             },
+            "peak_bytes": self.peak_bytes,
         }
 
 
@@ -145,9 +183,9 @@ def local_bytes(tree) -> int:
 
 
 def analyze(fn, args, mesh, kwargs: Optional[dict] = None):
-    """Run ``fn(*args)`` once under ``OpCounter``; returns (its outputs,
-    the counter's record)."""
-    counter = OpCounter(mesh)
+    """Run ``fn(*args)`` once under ``OpCounter`` (``args`` live
+    throughout); returns (its outputs, the counter's record)."""
+    counter = OpCounter(mesh, live=(args, kwargs))
     with counter:
         out = fn(*args, **(kwargs or {}))
     return out, counter.record()

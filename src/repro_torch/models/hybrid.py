@@ -8,7 +8,9 @@ reference's names and stacking: ``rec_layers`` ``[n_groups, 2, ...]``,
 so the JAX package's params carried over as numpy
 (``utils.tree.from_numpy_tree``) are the port's params.  The reference
 scans the stacks with ``lax.scan``; here Python loops walk them, taking
-views.  ``cfg.remat`` is not applied (it changes memory, not results).
+views.  ``cfg.remat`` checkpoints each block of the groups in the
+training forward (``layers.remat``), the tail's recurrent blocks not, as
+the reference does (memory changes, results do not).
 
 The linear recurrence h_t = a_t h_{t-1} + b_t runs as a log-depth scan in
 plain torch at train/prefill time (``rglru_scan``: the reference's
@@ -250,11 +252,19 @@ class RecurrentGemmaLM:
         window = cfg.hybrid.attention_window
         x = sharding.constrain(L.embed(params["embedding"], tokens), "batch",
                                None, None)
-        for kind, lp, _ in self._blocks(params):
-            if kind == "rec":
-                x = self._rec_apply(lp, x)[0]
+        def rec(lp, xi):
+            return self._rec_apply(lp, xi)[0]
+
+        # the groups' blocks checkpointed, the tail's not, as the reference
+        rec_one = L.remat(rec, cfg.remat)
+        attn_one = L.remat(lambda lp, xi: self._attn_apply(
+            lp, xi, positions, None, window), cfg.remat)
+        tail = 2 * self.n_groups
+        for kind, lp, i in self._blocks(params):
+            if kind == "attn":
+                x = attn_one(lp, x)
             else:
-                x = self._attn_apply(lp, x, positions, None, window)
+                x = (rec_one if i < tail else rec)(lp, x)
         x = L.rmsnorm(params["final_norm"], x)
         logits = L.unembed(params["embedding"], x)
         return logits, None, torch.zeros((), dtype=torch.float32,

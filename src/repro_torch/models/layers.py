@@ -47,12 +47,47 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor
 
 from repro_torch import sharding
 from repro_torch.config import ModelConfig
 
 Params = Dict[str, Any]
+
+# ---------------------------------------------------------------------------
+# activation checkpointing (cfg.remat)
+# ---------------------------------------------------------------------------
+
+def _in_functorch_transform() -> bool:
+    """True inside ``torch.func.grad``/``vjp``/``jvp``/``vmap``: functorch
+    keeps a stack of interpreters, one per transform being traced, and it
+    is empty outside every transform."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def remat(fn, enabled: bool):
+    """``fn`` under ``torch.utils.checkpoint.checkpoint(use_reentrant=
+    False)`` when ``enabled`` (``cfg.remat``, the reference's
+    ``jax.checkpoint`` per layer): its activations are recomputed in the
+    backward pass instead of saved.  Gradients, and the HVP by reverse over
+    reverse, are bitwise the same.  The checkpoint is skipped, changing
+    only memory, where it would save nothing (grad mode off) and inside a
+    ``torch.func`` transform, whose ``grad``, ``vjp`` and ``jvp`` refuse
+    the saved-tensor hooks a checkpoint installs.  On DTensors the
+    recomputation must run on the calling thread, under the forward's
+    ``sharding.use_mesh`` (thread-local): the semi-synchronous step keeps
+    its backward there on a mesh (``semi_sync._on_mesh``)."""
+    if not enabled:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled() or _in_functorch_transform():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
+
 
 # ---------------------------------------------------------------------------
 # init helpers

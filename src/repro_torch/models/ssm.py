@@ -9,8 +9,10 @@ Params keep the reference's names and its stacked leading layer axis
 params carried over as numpy (``utils.tree.from_numpy_tree``) are the
 port's params.  A Python loop walks the layer axis where the reference
 scans it.  The training forward writes nothing in place, so
-``torch.func.grad``, ``jvp`` and ``vmap`` run through it.  ``cfg.remat`` is
-not applied (it changes memory, not results).
+``torch.func.grad``, ``jvp`` and ``vmap`` run through it.  ``cfg.remat``
+checkpoints each layer of the training forward (``layers.remat``), as the
+reference does; it changes memory, not results, and steps aside inside a
+``torch.func`` transform.
 
 With ``cfg.attn_impl == "pallas"``, ``forward``/``loss``/``predict`` run the
 chunked scan through the SSD kernel (``kernels/ssd_scan.ssd_chunked``, one
@@ -291,9 +293,11 @@ class Mamba2LM:
         scan = self._scan()
         x = sharding.constrain(L.embed(params["embedding"], tokens), "batch",
                                None, None)
+        layer = L.remat(lambda lp, xi: self.layer(lp, xi, scan)[0],
+                        cfg.remat)
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], params["layers"])
-            x = self.layer(lp, x, scan)[0]
+            x = layer(lp, x)
         x = L.rmsnorm(params["final_norm"], x)
         logits = L.unembed(params["embedding"], x)
         return logits, None, torch.zeros((), dtype=torch.float32,

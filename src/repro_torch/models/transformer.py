@@ -15,9 +15,9 @@ model has cross layers); here a Python loop walks the layer axis, taking
 views, and runs cross layer ``j`` after self layer ``(j + 1) *
 cross_attn_every - 1``, the same order.  The self layers keep their
 indices into the cache; the cross layers have none.  ``cfg.remat``
-(activation checkpointing) changes memory, not results, and is not
-applied: the port serves and scores at full width, it does not train
-there.
+checkpoints each self layer of a call without a cache
+(``layers.remat``), as the reference's ``jax.checkpoint`` of its scan
+body: memory changes, results do not.
 
 With ``cfg.attn_impl == "pallas"`` a GQA self-attention call without a
 cache (``forward``, ``loss``, ``predict``) runs through the flash kernel
@@ -167,11 +167,12 @@ class TransformerLM:
         x = sharding.constrain(self._embed(params, tokens), "batch", None,
                                None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layer = L.remat(self._layer_apply, cfg.remat and cache is None)
         for i in range(cfg.num_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
             lc = (tree_map(lambda a: a[i], cache) if cache is not None
                   else None)
-            x, a = self._layer_apply(lp, x, positions, lc, win)
+            x, a = layer(lp, x, positions, lc, win)
             if a is not None:
                 aux = aux + a
             if self.n_cross and (i + 1) % cfg.cross_attn_every == 0:

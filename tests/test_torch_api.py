@@ -3,22 +3,16 @@
 For every subpackage (and every module) of the reference that declares
 ``__all__``, the port exports each name that is ported, and its own
 ``__all__`` lists exactly those.  ``MISSING`` names what is not ported
-yet; a later slice that ports a name moves it out of this list, and the
-test fails until it does.
+yet (nothing, now); a name listed there must stay unexported, and the
+test fails once it is ported until it leaves the list.
 """
 import importlib
 
 import pytest
 
-# name -> reference names the port does not export yet (ROADMAP queue 1)
-MISSING = {
-    "repro.analysis": ["Baseline", "BaselineEntry", "Finding", "LintReport",
-                       "lint_text", "run_paths"],
-    "repro.analysis.core": None,        # whole module: static analysis
-    "repro.analysis.rules": None,
-    "repro.kernels.ops": None,          # the reference's jit wrappers
-    "repro.utils.hypofallback": None,   # the reference's test support
-}
+# name -> reference names the port does not export yet (a whole module:
+# None).  Empty: the port has the JAX package's whole module surface.
+MISSING = {}
 
 MODULES = ["repro.analysis", "repro.analysis.core", "repro.analysis.rules",
            "repro.checkpoint", "repro.core", "repro.data", "repro.fl",

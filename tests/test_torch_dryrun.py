@@ -8,10 +8,13 @@ run once in this process on meta DTensors over 8 fake ranks.  Each must end
 with FLOPs > 0, collectives counted, and rank 0's param bytes equal to
 what the reference's ``param_specs`` (on an ``AbstractMesh`` of the same
 shape) give: the product over dims of ceil(size / ranks splitting it),
-times the item size.  Also: the roofline's axis pricing, and the CLI's
+times the item size, and a peak at least the argument bytes.  Also: the
+roofline's axis pricing, the ``no_remat`` lever (accepted; it turns
+``cfg.remat`` off and raises a plain gradient step's peak), the CLI's
 refusal of levers that mean nothing in torch, and the collective counts
 against torch's ``CommDebugMode``.
 """
+import dataclasses
 import math
 
 import jax
@@ -23,7 +26,7 @@ from repro import sharding as ref_sharding
 from repro.configs import get_config as ref_get_config
 from repro.launch import specs as ref_specs
 from repro.models import build_model as ref_build_model
-from repro_torch.config import ShapeConfig
+from repro_torch.config import FLConfig, ShapeConfig
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import fake_world, make_mesh
@@ -80,8 +83,12 @@ def test_reduced_case_runs_and_param_bytes_match_reference(arch, kind,
     assert rec["flops"] > 0
     assert rec["collectives"]["total_bytes"] > 0
     assert rec["memory"]["param_bytes"] == _ref_param_bytes(arch, mesh_name)
-    assert rec["memory"]["argument_bytes"] >= rec["memory"]["param_bytes"]
-    assert "temp_bytes" not in rec["memory"]        # absent, not 0
+    mem = rec["memory"]
+    assert mem["argument_bytes"] >= mem["param_bytes"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["temp_bytes"] == max(mem["peak_bytes"] - mem["argument_bytes"]
+                                    - mem["output_bytes"], 0)
+    assert "compile_s" not in rec                   # absent, not 0
     assert set(rec["roofline"]) >= {"compute_s", "memory_s", "collective_s",
                                     "dominant"}
     if cohorts:
@@ -123,6 +130,62 @@ def test_roofline_prices_axes_by_node():
     assert rf["compute_s"] == pytest.approx(1.0)
     assert rf["collective_s"] == pytest.approx(2.0)
     assert rf["dominant"] == "collective_s"
+
+
+def test_no_remat_lever_sets_remat_off_and_raises_the_peak():
+    """``no_remat`` turns ``cfg.remat`` off; on a plain gradient step (where
+    checkpointing frees the layers' activations) the peak is then at
+    least as high, and the records agree but for the recomputation."""
+    cfg = get_config("yi_6b").reduced()
+    on, _, _ = dryrun.apply_levers(dataclasses.replace(cfg, remat=True),
+                                   FLConfig(), "gather", ())
+    off, _, _ = dryrun.apply_levers(on, FLConfig(), "gather", ("no_remat",))
+    assert on.remat and not off.remat
+    recs = {}
+    for c in (on, off):
+        with fake_world(8):
+            mesh = make_mesh(*MESHES["single"])
+            recs[c.remat] = dryrun.lower(c, SHAPES["train"], mesh,
+                                         rules=arch_rules(c, mesh),
+                                         perfed_step=False)
+    mem_on, mem_off = recs[True]["memory"], recs[False]["memory"]
+    assert mem_off["peak_bytes"] >= mem_on["peak_bytes"]
+    assert mem_on["peak_bytes"] >= mem_on["argument_bytes"]
+    assert mem_on["argument_bytes"] == mem_off["argument_bytes"]
+    assert recs[True]["flops"] > recs[False]["flops"]     # recomputation
+
+
+def test_peak_bytes_follow_storage_liveness():
+    """``op_analysis`` counts each storage from the op that makes it until
+    it is freed, views and in-place results once: here the arguments,
+    ``a`` and ``b`` are live at once (``a`` dies before ``c`` is made)."""
+    import torch
+
+    from repro_torch.launch.op_analysis import analyze
+
+    def step(x):
+        a = x * 2                     # 4 KiB
+        b = (a + 1).view(32, 32)      # 4 KiB, a view adds nothing
+        b.add_(1)                     # in place: nothing new
+        del a
+        return b * 3                  # 4 KiB, with x and b live
+
+    x = torch.empty(1024, device="meta")
+    _, rec = analyze(step, (x,), None)
+    assert rec["peak_bytes"] == 3 * 4096
+
+
+def test_cli_accepts_no_remat(monkeypatch, tmp_path):
+    seen = []
+
+    def stub(arch, shape, *, multi_pod, moe_impl, opts):
+        seen.append(opts)
+        return {"status": "fail", "error": "stub", "total_s": 0.0}
+
+    monkeypatch.setattr(dryrun, "run_case", stub)
+    dryrun.main(["--arch", "yi_6b", "--shape", "train_4k", "--opt",
+                 "no_remat", "--out", str(tmp_path)])
+    assert seen == [("no_remat",)]
 
 
 @pytest.mark.parametrize("lever", sorted(dryrun.NO_MEANING))

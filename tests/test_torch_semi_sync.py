@@ -16,6 +16,9 @@ the JAX reference.
   summation-order noise in the gradients are not a fair parity test.
 * The four properties of ``tests/test_semi_sync_step.py`` on the port.
 * ``make_train_step`` (PerFed and plain) against the reference.
+* ``cfg.remat`` on reduced yi-6b and mamba2: loss, gradient, HVP and
+  meta-gradient bitwise with and without it, and ``torch.func.grad``
+  through a ``remat=True`` model (which skips the checkpoint).
 * ``launch.train --mode scale --reduce --device cpu --steps 2`` and
   ``launch.train_e2e --device cpu --rounds 2`` run (``--server-opt adam``
   and ``--fused-agg`` too).
@@ -39,13 +42,13 @@ from repro.optim import make_optimizer as ref_make_optimizer
 from repro_torch.config import ExperimentConfig, FLConfig, ModelConfig
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config
-from repro_torch.core import semi_sync
+from repro_torch.core import perfed, semi_sync
 from repro_torch.kernels import fused_adam, stale_aggregate
 from repro_torch.launch import train, train_e2e
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
-                                    tree_norm, tree_sub)
+                                    tree_norm, tree_sub, tree_unflatten)
 
 N_COHORTS = 3
 FL = dict(alpha=0.02, beta=0.1, staleness_bound=1, algorithm="perfed")
@@ -294,6 +297,55 @@ def test_train_step_matches_reference(perfed_step):
                                        float(ref_metrics[key]), rtol=1e-5)
         _assert_params_close(state.params, ref_state.params)
     assert int(state.step) == int(ref_state.step) == 2
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_370m"])
+def test_remat_is_bitwise_and_steps_aside_under_torch_func(arch,
+                                                           monkeypatch):
+    """``cfg.remat`` checkpoints each layer (the checkpoint is called) and
+    changes no bit of the loss, the gradient, the reverse-over-reverse HVP
+    or the step's meta-gradient; ``torch.func.grad`` runs through a
+    ``remat=True`` model without a checkpoint and equals ``remat=False``."""
+    base = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    calls = []
+    checkpoint = torch.utils.checkpoint.checkpoint
+
+    def counting(*args, **kw):
+        calls.append(kw.get("use_reentrant"))
+        return checkpoint(*args, **kw)
+
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", counting)
+    batches = tree_map(lambda x: torch.from_numpy(x[0]), _lm_batches(
+        np.random.default_rng(3), base.vocab_size, n=1))
+    out = {}
+    for remat in (True, False):
+        model = build_model(dataclasses.replace(base, remat=remat))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+        def loss_fn(p, b):
+            return model.loss(p, b)[0]
+
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, leaves), batches["outer"])
+        grads = torch.autograd.grad(loss, leaves)
+        hvp = perfed.hvp_autograd(loss_fn, params, batches["hessian"],
+                                  tree_unflatten(params, grads))
+        meta = perfed.perfed_grad(loss_fn, params, batches, 0.02,
+                                  autograd=True)
+        n = len(calls)
+        func = torch.func.grad(lambda p: loss_fn(p, batches["outer"]))(
+            params)
+        assert len(calls) == n          # no checkpoint inside torch.func
+        out[remat] = [loss.detach(), *grads, *tree_leaves(hvp),
+                      *tree_leaves(meta), *tree_leaves(func)]
+        if remat:
+            assert calls and set(calls) == {False}
+            n_remat = len(calls)
+        else:
+            assert len(calls) == n_remat
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

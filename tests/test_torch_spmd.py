@@ -16,6 +16,15 @@ reference's params and the inputs, the ranks write their results back:
   amplify the differences); staleness and step bitwise.  Each rank's
   buffer bytes equal the sharded size (C/2 cohorts, each leaf split as its
   param), and the buffers keep ``state_shardings``' placements;
+* one round of the server Adam with clipping on the same mesh, from the
+  reference's state after round 0 (its buffers filled) with fresh Adam
+  moments, against the reference's step with ``make_optimizer("adam")``
+  on one device: params within 1e-5 of each leaf's scale, m and v within
+  rtol 1e-5 (the tolerance of ``tests/test_torch_semi_sync.py``'s
+  server-Adam round: the masked mean is elementwise, so only the norm's
+  all-reduce reassociates a sum).  The clip norm must be the reference's
+  global one, though every rank's local shards of the aggregate have a
+  smaller norm and the ranks' local norms differ;
 * ``moe_apply_ep`` on (data 2, model 4) with 8 experts (2 a shard) and
   with 2 (4 virtual experts of half the FFN width) against the
   reference's ``moe_apply_gather``: outputs within 1e-4, aux within 1e-5
@@ -50,6 +59,8 @@ MASKS = [[1.0, 1.0], [1.0, 0.0]]
 COHORTS, BATCH, SEQ = 2, 4, 16
 STATE_RTOL = 1e-4
 EP_ATOL, AUX_ATOL = 1e-4, 1e-5
+ADAM_CLIP = 0.05          # well under the aggregate's norm: the clip acts
+ADAM_RTOL = 1e-5
 
 
 def _flat(tree):
@@ -71,11 +82,12 @@ def _reference_semi_sync(out_dir):
                                          COHORTS)
     np.savez(os.path.join(out_dir, "params.npz"), **_flat(state.params))
     json.dump({"arch": ARCH, "reduced": REDUCED, "fl": FL,
-               "cohorts": COHORTS, "masks": MASKS},
+               "cohorts": COHORTS, "masks": MASKS, "adam_clip": ADAM_CLIP},
               open(os.path.join(out_dir, "semi_sync.json"), "w"))
     step = jax.jit(ref_semi_sync.make_semi_sync_step(model, exp, opt,
                                                      COHORTS))
     rng = np.random.default_rng(0)
+    after = []
     for k, mask in enumerate(MASKS):
         batch = {}
         for n in ("inner", "outer", "hessian"):
@@ -87,7 +99,34 @@ def _reference_semi_sync(out_dir):
                     for f in ("tokens", "targets")})
         state, _ = step(state, batch, jnp.asarray(mask, jnp.float32),
                         jax.random.PRNGKey(k))
-    return state
+        after.append(state)
+    return state, after[0]
+
+
+def _reference_server_adam(out_dir, state0):
+    """Write the state after round 0; return the reference's state and
+    metrics after one server-Adam round (with clipping) from it, on round
+    1's batch and mask."""
+    cfg = dataclasses.replace(ref_get_config(ARCH).reduced(**REDUCED),
+                              dtype="float32")
+    model = ref_build_model(cfg)
+    exp = RefExperimentConfig(model=cfg, fl=RefFLConfig(**FL),
+                              train=RefTrainConfig(grad_clip=ADAM_CLIP))
+    opt = ref_make_optimizer("adam")
+    state = state0._replace(opt_state=opt.init(state0.params))
+    np.savez(os.path.join(out_dir, "adam_state.npz"),
+             **{f"params/{k}": v for k, v in _flat(state.params).items()},
+             **{f"buffers/{k}": v for k, v in _flat(state.buffers).items()},
+             staleness=np.asarray(state.staleness),
+             step=np.asarray(state.step))
+    with np.load(os.path.join(out_dir, "batch1.npz")) as f:
+        batch = {n: {k: jnp.asarray(f[f"{n}_{k}"])
+                     for k in ("tokens", "targets")}
+                 for n in ("inner", "outer", "hessian")}
+    step = jax.jit(ref_semi_sync.make_semi_sync_step(model, exp, opt,
+                                                     COHORTS))
+    return step(state, batch, jnp.asarray(MASKS[1], jnp.float32),
+                jax.random.PRNGKey(1))
 
 
 def _reference_moe(out_dir):
@@ -119,7 +158,8 @@ def _close(got, want, what):
 
 def test_semi_sync_and_expert_parallel_on_eight_ranks(tmp_path):
     out_dir = str(tmp_path)
-    ref_state = _reference_semi_sync(out_dir)
+    ref_state, ref_state0 = _reference_semi_sync(out_dir)
+    ref_adam, ref_adam_metrics = _reference_server_adam(out_dir, ref_state0)
     ref_moe = _reference_moe(out_dir)
     mp.spawn(worker.run, args=(out_dir,), nprocs=worker.WORLD, join=True)
 
@@ -162,3 +202,25 @@ def test_semi_sync_and_expert_parallel_on_eight_ranks(tmp_path):
         err = float(np.abs(got_moe[f"out{n_experts}"] - out).max())
         assert err < EP_ATOL, (n_experts, err)
         assert abs(float(got_moe[f"aux{n_experts}"]) - aux) < AUX_ATOL
+
+    # the server Adam round: the clip norm is the global one, as the
+    # reference's, and the update matches
+    adam = json.load(open(os.path.join(out_dir, "adam_out.json")))
+    want_norm = float(ref_adam_metrics["grad_norm"])
+    assert want_norm > ADAM_CLIP
+    assert abs(adam["grad_norm"] - want_norm) <= ADAM_RTOL * want_norm
+    local = adam["local_norms"]
+    assert len(local) == worker.WORLD and len(set(local)) > 1
+    assert max(local) < (1.0 - 1e-3) * want_norm
+    assert adam["t"] == int(ref_adam.opt_state["t"]) == 1
+    with np.load(os.path.join(out_dir, "got_adam.npz")) as f:
+        got_adam = {k: f[k] for k in f.files}
+    for k, want in _flat(ref_adam.params).items():
+        scale = 1.0 + float(np.abs(want).max())
+        err = float(np.abs(got_adam[f"params/{k}"] - want).max())
+        assert err <= ADAM_RTOL * scale, (k, err)
+    for name in ("m", "v"):
+        for k, want in _flat(ref_adam.opt_state[name]).items():
+            np.testing.assert_allclose(got_adam[f"{name}/{k}"], want,
+                                       rtol=ADAM_RTOL, atol=1e-12)
+    assert adam["staleness"] == np.asarray(ref_adam.staleness).tolist()

@@ -89,6 +89,73 @@ def _semi_sync(out_dir, rank):
                   open(os.path.join(out_dir, "semi_sync_out.json"), "w"))
 
 
+def _server_adam(out_dir, rank):
+    """One server-Adam round with clipping on (pod 2, data 2, model 2) from
+    the reference's state after round 0; each rank also notes the norm of
+    its own local shards of the aggregate."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.config import ExperimentConfig, FLConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import semi_sync
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import (from_numpy_tree, tree_leaves,
+                                        tree_map, tree_norm, tree_paths)
+
+    meta = json.load(open(os.path.join(out_dir, "semi_sync.json")))
+    cfg = dataclasses.replace(get_config(meta["arch"]).reduced(
+        **meta["reduced"]), dtype="float32")
+    exp = ExperimentConfig(model=cfg, fl=FLConfig(**meta["fl"]),
+                           train=TrainConfig(grad_clip=meta["adam_clip"]))
+    model, opt = build_model(cfg), make_optimizer("adam")
+    c = meta["cohorts"]
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    rules = specs.arch_rules(cfg, mesh)
+    saved = _load(os.path.join(out_dir, "adam_state.npz"))
+    tree = from_numpy_tree({k: v for k, v in saved.items()
+                            if "/" in k}, "cpu")
+    plain = semi_sync.SemiSyncState(
+        params=tree["params"], opt_state=opt.init(tree["params"]),
+        buffers=tree["buffers"],
+        staleness=torch.from_numpy(saved["staleness"]),
+        step=torch.from_numpy(saved["step"]))
+    with sharding.use_mesh(mesh, rules):
+        pl = specs.state_shardings(plain, sharding.param_placements(
+            plain.params, mesh, rules), mesh)
+        state = sharding.distribute(plain, pl, mesh)
+        mask = torch.tensor(meta["masks"][1], dtype=torch.float32)
+        agg = semi_sync._masked_aggregate_mesh(state.params, state.buffers,
+                                               mask)
+        local_norm = float(tree_norm(tree_map(lambda x: x.to_local(),
+                                              agg)))
+        b = _load(os.path.join(out_dir, "batch1.npz"))
+        batches = sharding.distribute(
+            {n: {"tokens": torch.from_numpy(b[f"{n}_tokens"]),
+                 "targets": torch.from_numpy(b[f"{n}_targets"])}
+             for n in ("inner", "outer", "hessian")},
+            sharding.placements_for(("clients", "batch", None), mesh), mesh)
+        step = semi_sync.make_semi_sync_step(model, exp, opt, c)
+        state, metrics = step(state, batches, mask)
+    norms = [None] * WORLD
+    dist.all_gather_object(norms, local_norm)
+    full = {f"{name}/{p}": x.full_tensor().numpy()
+            for name, t in (("params", state.params),
+                            ("m", state.opt_state["m"]),
+                            ("v", state.opt_state["v"]))
+            for p, x in zip(tree_paths(t), tree_leaves(t))}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "got_adam.npz"), **full)
+        json.dump({"grad_norm": float(metrics["grad_norm"].full_tensor()),
+                   "local_norms": norms,
+                   "t": int(state.opt_state["t"].full_tensor()),
+                   "staleness": state.staleness.full_tensor().tolist()},
+                  open(os.path.join(out_dir, "adam_out.json"), "w"))
+
+
 def _zero_buffers(params, placements, c, mesh):
     from repro_torch import sharding
     from repro_torch.utils.tree import tree_map
@@ -142,6 +209,7 @@ def run(rank, out_dir):
                             world_size=WORLD)
     try:
         _semi_sync(out_dir, rank)
+        _server_adam(out_dir, rank)
         _moe_ep(out_dir, rank)
         dist.barrier()
     finally:
