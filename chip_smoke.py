@@ -25,7 +25,8 @@ and each prints its seconds:
    scoring and prefill shapes, its rate over the j <= i pairs and over all
    pairs, and its shared memory a CTA; flash also at recurrentgemma-2b's
    local attention, MQA at head dim 256 with a 2,048 window, in bf16 (the
-   mma.sync route) and f32; flash at mixtral-8x22b's sliding-window GQA
+   wgmma route without a producer warpgroup) and f32; flash at
+   mixtral-8x22b's sliding-window GQA
    (group 6, D 128, a 4,096-key window over 4,096 keys) in bf16 and f32;
    flash at llama-3.2-vision-11b's GQA (group 4, D 128) and at
    musicgen-large's full MHA (group 1, D 64, the wgmma route), both
@@ -139,6 +140,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -268,18 +270,31 @@ def phase_build(kernels):
 
 def ptxas_kernels(log):
     """``-Xptxas -v``'s report per kernel entry: its name -> its registers,
-    static shared memory, stack and spills."""
-    import re
+    static shared memory, stack and spills, and any ``C75xx`` warning
+    (wgmma serialised), which ptxas prints before the entry it names."""
     out, name = {}, None
+
+    def add(kernel, text):
+        out[kernel] = (out[kernel] + "; " if out.get(kernel) else "") + text
+
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        w = re.search(r"\((C75\d+)\) (.*) for the function '(\S+)'", line)
         if m:
             name = m.group(1)
-            out[name] = ""
+            out.setdefault(name, "")
+        elif w:
+            add(w.group(3), f"{w.group(1)} {w.group(2)}")
         elif name is not None and ("registers" in line or "spill" in line):
-            out[name] = (out[name] + "; " if out[name] else "") + \
-                line.split(":", 1)[-1].strip()
+            add(name, line.split(":", 1)[-1].strip())
     return dict(zip(demangle(list(out)), out.values()))
+
+
+def _instance(report, kernel, d):
+    """The entries of a ptxas report for ``kernel<d>``, whether the name
+    was demangled (``kernel<(int)d>``) or not (``kernelILi<d>E``)."""
+    return {k: v for k, v in report.items()
+            if re.search(rf"{kernel}(<(\(int\))?{d}>|ILi{d}E)", k)}
 
 
 def demangle(names):
@@ -668,13 +683,18 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
         control(torch, "flash", fa.attention_plain(
             q.float(), k.float(), v.float(), causal=causal,
             window=window + 1), want, "window one key too wide")
-    elif dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
+        # the 64 keys of each row's own 64-key tile (the K tile at D 128
+        # and 256) dropped, under the row's mask
         qp = torch.arange(sl, device="cuda")
         keep = (qp[None, :] <= qp[:, None]) if causal else \
             torch.ones(sl, sl, dtype=torch.bool, device="cuda")
+        if window:
+            keep &= (qp[:, None] - qp[None, :]) < window
         keep &= (qp[None, :] // 64) != (qp[:, None] // 64)
         control(torch, "flash", attention_keep(torch, q, k, v, keep), want,
                 "diagonal tile skipped")
+        del keep
     del want
     torch.cuda.empty_cache()
     slow = dtype == torch.float32
@@ -804,6 +824,7 @@ DECODE_SHAPE = (4, 32, 4, 4096, 128)
 FIRST_DESIGN_MS = {
     ("flash", "bfloat16", FLASH_SCORE_SHAPE): 4.277,
     ("flash", "bfloat16", FLASH_WINDOW_SHAPE): 0.535,
+    ("flash", "bfloat16", FLASH_HYBRID_SHAPE): 1.698,      # its mma.sync kernel
     ("flash", "float32", FLASH_SCORE_SHAPE): 23.415,
     ("flash", "float32", FLASH_WINDOW_SHAPE): 2.911,
     ("decode", "bfloat16"): 0.12835, ("decode", "float32"): 0.15835}
@@ -4042,6 +4063,13 @@ def main():
     t_start = time.perf_counter()
     smi = timed("environment", phase_environment, torch)
     ptxas = timed("build", phase_build, [agg, fa, da, ssd, adam])
+    for kernel, info in ptxas["flash_attention.cu"].items():
+        # a wgmma kernel that spills or serialises its wgmmas has lost its
+        # design (reported only for a library built in this run)
+        if "flash_wgmma_kernel" in kernel:
+            check("C75" not in info and re.search(
+                r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", info),
+                f"ptxas: {kernel}: {info}")
     mods = import_port()
     # the main path's shapes: mnist_dnn's N with the server's close (C = A
     # = 5), the engine's padded bucket (8) and the scale point (128); one
@@ -4054,6 +4082,8 @@ def main():
     torch.cuda.empty_cache()
     attn = timed("kernel vs plain (attention)", phase_attention_vs_plain,
                  torch, fa, da)
+    check(attn[("flash", torch.bfloat16, FLASH_HYBRID_SHAPE)]["kernel_route"]
+          == "wgmma-tma", "bf16 flash at D 256 left the wgmma route")
     ssd_rows = timed("kernel vs plain (SSD chunk)", phase_ssd_vs_plain,
                      torch, ssd)
     adam_rows = timed("kernel vs plain (fused Adam)", phase_adam_vs_plain,
@@ -4164,10 +4194,13 @@ def main():
                      "attention block",
              "launches": hybrid_score["launches"],
              "shape": list(FLASH_HYBRID_SHAPE), "dtype": "bfloat16",
-             "ptxas": {k: v for k, v in ptxas["flash_attention.cu"].items()
-                       if "256>" in k},
+             "ptxas": _instance(ptxas["flash_attention.cu"],
+                                "flash_wgmma_kernel", 256),
              **attn[("flash", torch.bfloat16, FLASH_HYBRID_SHAPE)],
-             "float32": attn[("flash", torch.float32, FLASH_HYBRID_SHAPE)]},
+             "float32": dict(
+                 attn[("flash", torch.float32, FLASH_HYBRID_SHAPE)],
+                 ptxas=_instance(ptxas["flash_attention.cu"],
+                                 "flash_f32_kernel", 256))},
          "dense_remainder": {
              arch: {"launches": r["launches"], "head_dim": r["head_dim"]}
              for arch, r in dense.items()},

@@ -16,27 +16,45 @@
 // ridge (~295 flop/byte in bf16), so the least time is the flops over the
 // 989 TFLOP/s bf16 tensor-core peak, 0.28 ms.
 //
+// At RecurrentGemma's local attention (B = 2, Hq = 10, Hkv = 1, L = 4096,
+// D = 256, causal, window 2048) the mask keeps 125,849,600 (q, k) pairs:
+// 1.289e11 flops on 92 MB, ~1,400 flop/byte, so it is bound by operations
+// too (0.130 ms at the bf16 peak).  Each CTA of a batch reads the same K/V
+// (MQA, 4 MB a batch), which stays in L2.
+//
 // Three routes, a fixed function of (dtype, D) that the caller names
 // (flash_attention.py `route`) and this file checks:
 //
-// * bf16, D in {64, 128}: flash_wgmma_kernel, built the Hopper way.
+// * bf16, D in {64, 128, 256}: flash_wgmma_kernel, built the Hopper way.
 //   - A CTA owns 128 query rows of one (batch, head): two consumer
-//     warpgroups of 64 rows each, plus a producer warpgroup whose one
-//     thread issues every copy (384 threads, one CTA an SM; setmaxnreg
-//     moves registers from the producer to the consumers).  It walks the
-//     K/V tiles that some row of its q tile can see; tiles every row masks
-//     are neither loaded nor computed.  A tile is 64 keys at D = 128 (S 32,
-//     O 64 and P 16 registers a thread fit without spilling; 128-key tiles
-//     spilled and made ptxas serialise the wgmmas) and 128 keys at D = 64.
+//     warpgroups of 64 rows each.  It walks the K/V tiles that some row of
+//     its q tile can see; tiles every row masks are neither loaded nor
+//     computed.  A tile is 128 keys at D = 64 and 64 keys at D = 128 and
+//     256 (at D = 128, S 32, O 64 and P 16 registers a thread fit without
+//     spilling; 128-key tiles spilled and made ptxas serialise the wgmmas).
+//   - At D 64 and 128 a producer warpgroup, whose one thread issues every
+//     copy, joins them (384 threads, one CTA an SM; setmaxnreg moves
+//     registers from the producer to the consumers at run time).
+//   - D = 256 is bound by registers: a consumer thread holds O for 64 rows
+//     x 256 (128 f32 registers), S (32) and P (16) for a 64-key tile, 176
+//     before addresses and row state.  ptxas allocates within the launch
+//     bound whatever setmaxnreg does later, and a 384-thread CTA bounds it
+//     at 168: there 32-key tiles (O 128 + S 16 + P 8) spilled 192 B and
+//     64-key tiles 480 B, and both serialised the wgmmas.  So at D = 256
+//     the CTA is the two consumer warpgroups alone (256 threads, up to 255
+//     registers; 191 used, no spills), and thread 0 issues the copies
+//     between its own tiles: each tile as soon as both warpgroups have
+//     released its stage, waiting only for the tile its warpgroup needs
+//     next.  Two stages of 64 keys: 64 KB of Q + 2 x 64 KB of K/V.
 //   - K/V tiles arrive by TMA (cp.async.bulk.tensor) into a ring of stages
-//     (4 at D = 128: 32 KB of Q + 4 x 32 KB; 3 at D = 64), with a full
-//     mbarrier per stage for K and one for V and an empty mbarrier the 8
-//     consumer warps release.  Q arrives by TMA once.  The tensor maps are
-//     4-D over (D, L, H, B) with the caller's strides, so the model's
-//     [B, L, H, D] layout is read in place; SWIZZLE_128B, so a 128-column
-//     row arrives as two 64-column boxes.  Rows past L arrive zero-filled.
-//     A map cannot step a stride of 0, so a broadcast (expanded) dim of
-//     size > 1 is refused on this route.
+//     (2 at D = 256, 4 at D = 128: 32 KB of Q + 4 x 32 KB; 3 at D = 64),
+//     with a full mbarrier per stage for K and one for V and an empty
+//     mbarrier the 8 consumer warps release.  Q arrives by TMA once.  The
+//     tensor maps are 4-D over (D, L, H, B) with the caller's strides, so
+//     the model's [B, L, H, D] layout is read in place; SWIZZLE_128B, so a
+//     row arrives as D / 64 boxes of 64 columns.  Rows past L arrive
+//     zero-filled.  A map cannot step a stride of 0, so a broadcast
+//     (expanded) dim of size > 1 is refused on this route.
 //     The maps are encoded on the host each call with
 //     cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint(ByVersion): no -lcuda.
@@ -60,15 +78,11 @@
 //   - With a causal mask the q tiles launch heaviest first (grid z runs
 //     over q tiles in reverse, heads and batch in x and y), so the tail is
 //     short.
-// * bf16, D in {16, 32, 256}: flash_bf16_kernel, the first design
-//   (mma.sync m16n8k16, 64-row tiles, synchronous loads), which the wgmma
-//   tiling does not replace at these widths.  D 256 is RecurrentGemma's
-//   local attention (MQA, Hq 10, window 2048).  There a warp's 16-row O
-//   accumulator alone is 128 f32 registers a thread, so Q is not held in
-//   registers: it stays in shared memory at every D, and each 16-column
-//   chunk's A fragment is read once per K tile and shared by the tile's 8
-//   key groups.  Shared memory is 3 x 64 x 264 x 2 = 101,376 B a CTA at
-//   D 256, two CTAs an SM.
+// * bf16, D in {16, 32}: flash_bf16_kernel, the first design (mma.sync
+//   m16n8k16, 64-row tiles, synchronous loads), which the wgmma tiling does
+//   not replace at these widths.  Q stays in shared memory, and each
+//   16-column chunk's A fragment is read once per K tile and shared by the
+//   tile's 8 key groups.
 // * f32, D in {16, 32, 64, 128, 256}: flash_f32_kernel, FMAs on the CUDA
 //   cores, so the f32 path matches a float32 reference to float32
 //   rounding (23.4 ms at the scoring shape, against 26.5 ms for SDPA in
@@ -281,7 +295,7 @@ flash_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D in {16, 32, 256}: tensor cores through mma.sync m16n8k16
+// bfloat16, D in {16, 32}: tensor cores through mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int kBf16Threads = 128;  // 4 warps x 16 q rows
@@ -472,14 +486,13 @@ flash_bf16_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D in {64, 128}: wgmma + TMA, one producer warp, two consumer
-// warpgroups
+// bfloat16, D in {64, 128, 256}: wgmma + TMA, two consumer warpgroups and,
+// at D 64 and 128, a producer warpgroup
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBlockQ = 128;       // q rows a CTA: two warpgroups of 64
 constexpr int kQBoxBytes = kWgBlockQ * 128;  // a 64-column box of Q
 constexpr int kWgConsumers = 256;    // two consumer warpgroups
-constexpr int kWgThreads = kWgConsumers + 128;  // + the producer warpgroup
 // registers a thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
 constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
@@ -488,10 +501,17 @@ constexpr int kAtomBytes = 1024;     // 8 rows of 128 bytes: one swizzle atom
 
 template <int D>
 struct WgLayout {
-  // keys a K/V tile: 64 at D = 128, where S, O and P must share the
-  // registers (S 32 + O 64 + P 16 a thread), 128 at D = 64
-  static constexpr int kBK = D == 128 ? 64 : 128;
-  static constexpr int kStages = D == 128 ? 4 : 3;
+  // keys a K/V tile: 128 at D = 64; 64 at D = 128, where S, O and P must
+  // share the registers (S 32 + O 64 + P 16 a thread), and at D = 256
+  // (S 32 + O 128 + P 16), which fits only without a producer warpgroup
+  static constexpr int kBK = D == 64 ? 128 : 64;
+  static constexpr int kStages = D == 256 ? 2 : D == 128 ? 4 : 3;
+  // D = 256: no producer warpgroup, so that ptxas may give the consumers
+  // 255 registers a thread instead of the 168 of a 384-thread CTA
+  // (setmaxnreg moves registers at run time, but ptxas allocates within
+  // the launch bound); a consumer thread issues the copies
+  static constexpr bool kProducerWarpGroup = D != 256;
+  static constexpr int kThreads = kWgConsumers + (kProducerWarpGroup ? 128 : 0);
   static constexpr int kBoxBytes = kBK * 128;     // a 64-column box of K/V
   static constexpr int kBoxes = D / kBoxCols;    // boxes a tile
   static constexpr int kQBytes = kWgBlockQ * D * 2;
@@ -547,6 +567,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// whether the phase of the given parity has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // one box at (column, row, head, batch) into shared memory at dst
@@ -764,12 +797,72 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 256, f32) += A (64 x 16, bf16 registers) * B (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // O += P V for one 16-key slice, at the head dim's width
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
-  if constexpr (D == 128)
+  if constexpr (D == 256)
+    wgmma_rs_n256(o, a, desc_v);
+  else if constexpr (D == 128)
     wgmma_rs_n128(o, a, desc_v);
   else
     wgmma_rs_n64(o, a, desc_v);
@@ -902,7 +995,7 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(WgLayout<D>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, WgParams p) {
@@ -949,7 +1042,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   const int warp_group = __shfl_sync(0xffffffffu, tid / 128, 0);
-  if (warp_group == kWgConsumers / 128) {
+  if (Lay::kProducerWarpGroup && warp_group == kWgConsumers / 128) {
     // producer warpgroup: gives its registers up; one thread issues every
     // copy, K/V kStages - 1 tiles ahead of the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -975,7 +1068,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    if constexpr (Lay::kProducerWarpGroup)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          kConsumerRegs));
     // consumer warpgroup wg owns q rows qa .. qa + 63; a thread holds rows
     // qr[0] and qr[1] of the accumulators, columns 8n + cq + {0, 1}
     const WgParams prm = p;           // not the kernel parameter's address
@@ -1003,16 +1098,60 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       return k0 + BK > prm.L || (prm.causal && k0 + BK - 1 > qa) ||
              (prm.window > 0 && qa + 63 - k0 >= prm.window);
     };
+    // Without a producer warpgroup (D = 256), thread 0 issues every copy
+    // between its own tiles: Q once, then tile i of the walk into stage
+    // i % kStages once both warpgroups have released the stage's previous
+    // tile, i - kStages (the empty phase of parity ((i / kStages) & 1) ^ 1;
+    // a fresh barrier counts that phase as complete).  refill(need, upto)
+    // issues the tiles before `need` at once, waiting for their stage, then
+    // those before `upto` whose stage is already free; with this
+    // warpgroup at tile it, tiles before it + kStages qualify.  So thread 0
+    // waits for the other warpgroup only for the tile its own needs next.
+    int issued = 0;
+    auto refill = [&](int need, int upto) {
+      for (; issued < n_tiles && issued < upto; ++issued) {
+        const int st = issued % kStages;
+        const uint32_t parity = ((issued / kStages) & 1) ^ 1;
+        if (issued >= need) {
+          if (!mbar_test(empty(st), parity)) break;
+        } else {
+          mbar_wait(empty(st), parity);
+        }
+        const int kt = kt0 + issued;
+        mbar_expect_tx(full_k(st), Lay::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < Lay::kBoxes; ++x)
+          tma_load_4d(k_s + st * Lay::kTileBytes + x * Lay::kBoxBytes, &tm_k,
+                      full_k(st), x * kBoxCols, kt * BK, hk, b);
+        mbar_expect_tx(full_v(st), Lay::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < Lay::kBoxes; ++x)
+          tma_load_4d(v_s + st * Lay::kTileBytes + x * Lay::kBoxBytes, &tm_v,
+                      full_v(st), x * kBoxCols, kt * BK, hk, b);
+      }
+    };
+    if (!Lay::kProducerWarpGroup && tid == 0) {
+      mbar_expect_tx(bar_q, Lay::kQBytes);
+#pragma unroll
+      for (int x = 0; x < Lay::kBoxes; ++x)
+        tma_load_4d(q_s + x * kQBoxBytes, &tm_q, bar_q, x * kBoxCols, q0, h,
+                    b);
+    }
 
     // Per tile: S, the softmax, P V.  Each product completes before the
     // registers it uses are touched again (a register written while a wgmma
     // that reads it is in flight serialises the wgmmas); the other
-    // warpgroup's products run under this one's softmax.
+    // warpgroup's products run under this one's softmax.  Thread 0's copies
+    // (D = 256) go before each tile's S and again before its P V.
     mbar_wait(bar_q, 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int st = it % kStages;
       const uint32_t parity = (it / kStages) & 1;
       const int k0 = (kt0 + it) * BK;
+      if constexpr (!Lay::kProducerWarpGroup) {
+        if (tid == 0) refill(it + 1, it + kStages);
+        __syncwarp();
+      }
       mbar_wait(full_k(st), parity);
       wgmma_fence();
       issue_s<D, BK>(s, q_wg, k_s + st * Lay::kTileBytes);
@@ -1021,6 +1160,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(s);
       online_softmax<BK>(s, pa, m, l, alpha, prm, edge(k0), k0, qr, cq);
       rescale<D>(o, alpha);
+      if constexpr (!Lay::kProducerWarpGroup) {
+        if (tid == 0) refill(0, it + kStages);
+        __syncwarp();
+      }
       mbar_wait(full_v(st), parity);
       fence_regs(o);
       fence_regs(pa);
@@ -1134,7 +1277,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                              smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, B, (p.L + kWgBlockQ - 1) / kWgBlockQ);
-  flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, wp);
+  flash_wgmma_kernel<D><<<grid, WgLayout<D>::kThreads, smem, stream>>>(
+      tq, tk, tv, wp);
   return cudaGetLastError();
 }
 
@@ -1165,11 +1309,10 @@ cudaError_t dispatch_mma(dim3 grid, const Params& p, cudaStream_t stream) {
 
 // q, k, v, o: device pointers; element strides (batch, head, row) of each,
 // the head dim D contiguous.  route: 0 float32 on the CUDA cores (D 16, 32,
-// 64, 128 or 256), 1 bfloat16 through mma.sync (D 16, 32 or 256), 2
-// bfloat16 through wgmma and
-// TMA (D 64 or 128); any other pairing is refused, and so is a stride of 0
-// on a dim of size > 1 on route 2.  Returns a cudaError_t
-// (0 on success).
+// 64, 128 or 256), 1 bfloat16 through mma.sync (D 16 or 32), 2 bfloat16
+// through wgmma and TMA (D 64, 128 or 256); any other pairing is refused,
+// and so is a stride of 0 on a dim of size > 1 on route 2.  Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int route, int B,
     int Hq, int Hkv, int L, int D, long long q_sb, long long q_sh,
@@ -1206,12 +1349,15 @@ extern "C" int flash_attention_fwd(
     switch (D) {
       case 16: err = dispatch_mma<16>(grid, p, s); break;
       case 32: err = dispatch_mma<32>(grid, p, s); break;
-      case 256: err = dispatch_mma<256>(grid, p, s); break;
       default: break;
     }
-  } else if (route == 2 && (D == 64 || D == 128)) {
-    err = D == 64 ? launch_wgmma<64>(q, k, v, p, B, Hq, Hkv, s)
-                  : launch_wgmma<128>(q, k, v, p, B, Hq, Hkv, s);
+  } else if (route == 2) {
+    switch (D) {
+      case 64: err = launch_wgmma<64>(q, k, v, p, B, Hq, Hkv, s); break;
+      case 128: err = launch_wgmma<128>(q, k, v, p, B, Hq, Hkv, s); break;
+      case 256: err = launch_wgmma<256>(q, k, v, p, B, Hq, Hkv, s); break;
+      default: break;
+    }
   }
   return static_cast<int>(err);
 }
@@ -1227,9 +1373,9 @@ extern "C" int flash_attention_smem_bytes(int route, int D) {
     case 256: return f32_smem_bytes<256>();
     case 1016: return bf16_smem_bytes<16>();
     case 1032: return bf16_smem_bytes<32>();
-    case 1256: return bf16_smem_bytes<256>();
     case 2064: return WgLayout<64>::kSmemBytes;
     case 2128: return WgLayout<128>::kSmemBytes;
+    case 2256: return WgLayout<256>::kSmemBytes;
     default: return 0;
   }
 }

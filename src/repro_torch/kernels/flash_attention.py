@@ -7,11 +7,13 @@ kernels for Hopper (``csrc/flash_attention.cu``), built at first use by
 operations; the source's header note gives the design.  ``route`` names
 the kernel a CUDA tensor launches, a fixed function of (dtype, D):
 
-* bf16, D 64 or 128 — ``wgmma`` on both products, K/V tiles through a TMA
-  ring with mbarriers, a producer warpgroup and two consumer warpgroups;
-* bf16, D 16, 32 or 256 — ``mma.sync`` m16n8k16, synchronous tile loads,
-  Q's fragments read from shared memory once per K tile (D 256 is
-  RecurrentGemma's local attention);
+* bf16, D 64, 128 or 256 — ``wgmma`` on both products, K/V tiles through
+  a TMA ring with mbarriers, two consumer warpgroups and, at D 64 and 128,
+  a producer warpgroup; at D 256 (RecurrentGemma's local attention) a
+  consumer thread issues the copies, so that the CTA's 256 threads may
+  hold O's 128 registers beside a 64-key tile's S and P;
+* bf16, D 16 or 32 — ``mma.sync`` m16n8k16, synchronous tile loads, Q's
+  fragments read from shared memory once per K tile;
 * float32, any of ``HEAD_DIMS`` — FMAs on the CUDA cores.
 
 * ``attention_plain``     — the plain torch version, the counterpart of
@@ -70,7 +72,7 @@ def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA tensor of this dtype and head dim launches."""
     if dtype == torch.float32:
         return "f32-fma"
-    return "wgmma-tma" if d in (64, 128) else "mma-sync"
+    return "wgmma-tma" if d in (64, 128, 256) else "mma-sync"
 
 
 def smem_bytes(dtype: torch.dtype, d: int) -> int:

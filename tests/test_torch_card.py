@@ -14,7 +14,7 @@ keys); bfloat16 outputs row by row, ||got - want|| / ||want|| over the head
 dim, as ``chip_smoke.py`` holds them (a single rounding of the output to
 bf16 stays under 2^-8; the flash kernel also rounds P to bf16 for its
 tensor-core product).  The flash cases cover both bf16 routes (wgmma + TMA
-at D 64 and 128, mma.sync at D 16, 32 and 256) and the wgmma tiling's
+at D 64, 128 and 256, mma.sync at D 16 and 32) and the wgmma tiling's
 edges;
 the decode cases the split-S plan's edges (empty chunks, ragged S, one
 chunk, two head chunks a kv head, a row with no valid slot).  The SSD
@@ -151,14 +151,25 @@ FLASH_CASES = [
     # D 16 and 32 stay on the mma.sync route
     (1, 4, 2, 130, 16, True, 0),
     (1, 8, 2, 150, 32, True, 40),
-    # D 256 (RecurrentGemma's local attention: MQA, Hq 10) on the mma.sync
-    # route with Q read from shared memory: ragged L, a window edge inside
-    # a tile, a window wider than L, non-causal
+    # D 256 (RecurrentGemma's local attention: MQA, Hq 10) on the wgmma
+    # route without a producer warpgroup (64-key tiles through a two-stage
+    # ring that a consumer thread fills): ragged L, a window edge inside a
+    # tile, a window wider than L, non-causal, the model's shape cut to one
+    # batch row
     (1, 10, 1, 300, 256, True, 64),
     (2, 10, 1, 1000, 256, True, 200),
     (1, 4, 2, 129, 256, True, 0),
     (1, 2, 1, 200, 256, False, 0),
     (1, 10, 1, 4096, 256, True, 2048),
+    # ... L under one K tile, L ragged against 32- and 64-key tiles with
+    # MHA (Hq = Hkv = 4), window edges one key past a 32- and a 64-key
+    # boundary, and non-causal with the padded last tile (L 129, GQA
+    # group 2)
+    (1, 2, 1, 20, 256, True, 0),
+    (1, 4, 4, 1000, 256, True, 0),
+    (1, 2, 1, 333, 256, True, 33),
+    (1, 2, 1, 333, 256, True, 65),
+    (2, 4, 2, 129, 256, False, 0),
     # Mixtral's sliding window on its scoring path: GQA group 6 at D 128
     # with the window as long as the sequence (it must cut nothing beyond
     # the causal mask), at a tile multiple and at a ragged L
@@ -170,7 +181,7 @@ FLASH_CASES = [
 ]
 
 ROUTE = {16: "mma-sync", 32: "mma-sync", 64: "wgmma-tma", 128: "wgmma-tma",
-         256: "mma-sync"}
+         256: "wgmma-tma"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -201,7 +212,7 @@ def test_flash_kernel_matches_plain(dtype, b, hq, hkv, sl, d, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 128, 256])
 def test_flash_kernel_broadcast_kv(dtype, d):
     """k/v expanded from one head of one batch row (stride 0 over B and
     H): the f32 and mma.sync routes read it in place; the wgmma route's
@@ -241,6 +252,14 @@ def test_flash_kernel_broadcast_kv(dtype, d):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
     _assert_attn_close("flash", got, want[:1])
+
+
+def test_flash_wgmma_d256_fits_shared_memory():
+    """The D-256 wgmma CTA (64 KB of Q, two stages of 64-key K/V tiles and
+    the barriers) fits the 227 KB a block can take on an H100."""
+    _need_card()
+    assert fa.route(torch.bfloat16, 256) == "wgmma-tma"
+    assert 0 < fa.smem_bytes(torch.bfloat16, 256) <= 232_448
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
