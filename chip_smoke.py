@@ -98,7 +98,9 @@ and each prints its seconds:
    launch per layer, each held against the plain version) against xla:
    the losses, and the logits rows of the tokens that route to the same
    (expert, kept) pairs in every layer (flips counted and printed), in
-   bf16 and on an f32 copy of the params streamed a layer at a time;
+   bf16 and on an f32 copy of the params streamed a layer at a time; and
+   each layer's bf16 output alone, pallas against xla on the xla path's
+   input, on the tokens that route alike in that layer;
 10f. score deepseek-v2-236b: full width, 4 of 60 layers; MLA runs sdpa
    (0 flash launches); losses and logits pallas against xla, two calls
    bitwise equal (the MoE's fixed-order combine);
@@ -128,7 +130,26 @@ and each prints its seconds:
    path, one launch per leaf (12) a round, held against the reference's
    plain Adam math on the first aggregate that holds gradients — then one
    β-SGD round through the Eq.-8 kernel on the mixed bf16/f32 tree, then
-   ``launch.train --mode scale --arch mamba2_370m --steps 3``.
+   ``launch.train --mode scale --arch mamba2_370m --steps 3``;
+11b. train the rest of the zoo (slice 13): the same round loop at full
+   width on recurrentgemma-2b (its group and tail) and musicgen-large (12
+   of 48 layers) — two server-Adam rounds (the fused Adam kernel once a
+   leaf a round, the largest leaf's launch held against plain), then one
+   β-SGD round through the Eq.-8 kernel (held against plain on its own
+   inputs, a chunk of N at a time) — llama-3.2-vision-11b (a group of 5
+   self layers and its cross layer, gates drawn nonzero; two clipped
+   β-SGD rounds, then the Eq.-8 round), and mixtral-8x22b (1 of 56
+   layers, 3 clipped β-SGD rounds: no kernel's route fits beside it);
+   ``ZOO_TRAIN`` gives each one's depth and cohorts;
+11c. the zoo's five families at their reduced f32 configs, 2 semi-sync
+   rounds on the card against the CPU's plain route from the same state
+   and batches: staleness bitwise, params within 1e-5·(1 + max|p|);
+11d. the six examples of ``repro_torch.examples`` at their own settings:
+   Π row sums, finite losses, the quickstart's falling loss, cloud merges
+   on ``mobile_edge``'s hierarchy, Eq.-8 launches in the simulations;
+12. the SPMD layer (slice 10): on a world-1 NCCL mesh, mamba2's step with
+   DTensor state against the plain step (fused Eq. 8, then the server
+   Adam), finite and bitwise; Mixtral's EP against gather; the dry run.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line.
@@ -137,6 +158,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1983,6 +2005,383 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
 
 
 # ---------------------------------------------------------------------------
+# slice 13: the rest of the zoo trained, and the examples
+# ---------------------------------------------------------------------------
+
+# (arch, layers, cohorts, A, server routes): full width, depth and cohorts
+# cut so one card holds a round.  A round holds the old and the new params
+# and Adam moments (the caller keeps the old state), C buffer rows in the
+# params' dtype, and the meta-gradient's gradients; the Eq.-8 tree route
+# adds an f32 [C, N] copy of the buffers and a flat f32 p and out.  Read on
+# an NVIDIA H100 80GB HBM3 (700 W): musicgen-large at 12 of 48 layers
+# (838,912,000 params, C 4) peaks at 39.1 GiB, llama-3.2-vision-11b at one
+# group of 5 self layers and its cross layer (2,183,184,385, C 2, server
+# Adam) at 69.7 alone, but ran out of memory in the whole script (74.5 GiB
+# allocated), so its two rounds are clipped β-SGD (no m and v); at C 4 it,
+# and recurrentgemma-2b at its group and 2-layer tail (1,751,211,520) or
+# at the group alone (1,567,669,760), ran out of memory, so both take 2
+# cohorts, A 1.  Mixtral at 1 of 56 layers (2,906,720,256; a
+# bank leaf is 805,306,368) fits only the clipped β-SGD route (59.6 GiB at
+# C 2); neither kernel's route fits beside it.  DeepSeek-V2 at one layer
+# (5,020,697,600) does not fit one card in any route (>= 16 B a param).
+ZOO_TRAIN = (("recurrentgemma_2b", 5, 2, 1, ("adam", "eq8")),
+             ("llama32_vision_11b", 5, 2, 1, ("sgd", "eq8")),
+             ("musicgen_large", 12, 4, 2, ("adam", "eq8")),
+             ("mixtral_8x22b", 1, 2, 1, ("sgd",)))
+ZOO_TRAIN_ROUNDS = 3        # two server rounds, then the Eq.-8 round
+# CUDA against the CPU at the reduced f32 configs of the CPU parity tests
+# (their FL settings and masks: S 1, 3 cohorts), both of their routes
+ZOO_HOLD_ARCHS = (("recurrentgemma_2b", 0.0), ("mixtral_8x22b", 1.0),
+                  ("deepseek_v2_236b", 0.0), ("llama32_vision_11b", 1.0),
+                  ("musicgen_large", 0.0))
+ZOO_HOLD_FL = dict(alpha=0.02, beta=0.1, staleness_bound=1,
+                   algorithm="perfed")
+ZOO_HOLD_MASKS = ([1.0, 1.0, 0.0], [1.0, 0.0, 0.0])
+ZOO_HOLD_RTOL = 1e-5
+
+
+def _zoo_masks(cohorts, a, rounds):
+    """The first ``a`` cohorts arrive every round: round 0 applies the
+    zero-initialised buffers and refreshes them, so every later round
+    aggregates gradients (S 2 forces no other refresh in 3 rounds)."""
+    row = [1.0] * a + [0.0] * (cohorts - a)
+    return [row] * rounds
+
+
+def _holding_eq8(torch, agg, out):
+    """Wrap Eq. 8's flat entry point so that each launch on the card is
+    held against the plain version on its own inputs right after it runs,
+    a chunk of N at a time (the kernel is elementwise over N; an f32 copy
+    of the whole [C, N] would not fit beside the state), and the check is
+    shown the plain version with one arriving cohort's weight dropped.
+    Results go to ``out``; the launch count stays the wrapper's own."""
+    orig = agg.stale_aggregate_flat
+
+    def holding(params, buffers, mask, *, beta):
+        got = orig(params, buffers, mask, beta=beta)
+        if params.is_cuda:
+            n, c = int(params.shape[0]), int(buffers.shape[0])
+            tol = 1e-6 * (1.0 + float(params.abs().max()))
+            bad = mask.clone()
+            bad[int(torch.nonzero(mask)[0])] = 0.0
+            err = fault = 0.0
+            step = 1 << 26
+            for i in range(0, n, step):
+                sl = slice(i, min(i + step, n))
+                p, b = params[sl], buffers[:, sl].contiguous()
+                want = agg.stale_aggregate_plain(p, b, mask, beta=beta)
+                err = max(err, float((got[sl] - want).abs().max()))
+                fault = max(fault, float((got[sl] - agg.stale_aggregate_plain(
+                    p, b, bad, beta=beta)).abs().max()))
+                del p, b, want
+            out.append(dict(n=n, c=c, max_abs_err=err, fault_err=fault,
+                            tol=tol))
+        return got
+
+    agg.stale_aggregate_flat = holding
+    return orig
+
+
+def _zoo_train_cfg(mods, arch, layers, reduce):
+    cfg = mods.get_config(arch)
+    if reduce:
+        cfg = cfg.reduced()
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    # flash has no backward, as in the JAX package: training runs xla
+    return dataclasses.replace(cfg, attn_impl="xla")
+
+
+def _finite_tree(torch, mods, tree):
+    return all(bool(torch.isfinite(x).all()) for x in mods.tree_leaves(tree))
+
+
+def phase_train_zoo(torch, adam, agg, mods, arch, layers, cohorts, part,
+                    routes, smi, *, reduce=False, device="cuda"):
+    """``launch/train_e2e``'s round loop on ``arch`` at full width and
+    ``layers`` (bf16, ``attn_impl="xla"``; ``cohorts`` cohorts, A ``part``,
+    S 2, batch 4, seq 256; a vlm's gates drawn nonzero): with ``routes``
+    ("adam", "eq8"), two rounds of the server Adam, the fused Adam kernel
+    once a leaf a round and its last launch held against the plain version,
+    then one β-SGD round without clipping through the Eq.-8 kernel, held
+    against the plain version on its own inputs; with ("sgd",), three
+    rounds of clipped β-SGD.  Prints params, seconds a round, peak memory,
+    launches a round and the loss."""
+    cfg = _zoo_train_cfg(mods, arch, layers, reduce)
+    stale, bsz, seq = 2, 4, 256
+    if reduce:
+        bsz, seq = 2, 64
+    e2e = mods.train_e2e
+    model = mods.build_model(cfg)
+    server = "adam" if "adam" in routes else "sgd"
+    exp = e2e.experiment_cfg(cfg, staleness=stale, fused_agg=False)
+    opt = mods.make_optimizer(server)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = mods.semi_sync.init_state(
+        model, torch.Generator(device=device).manual_seed(0), opt, cohorts)
+    _gate_draw(torch, state.params, device)
+    n_params = sum(x.numel() for x in mods.tree_leaves(state.params))
+    n_leaves = len(mods.tree_leaves(state.params))
+    dtypes = sorted({str(x.dtype).replace("torch.", "")
+                     for x in mods.tree_leaves(state.params)})
+    import numpy as np
+    pi = np.asarray(_zoo_masks(cohorts, part, ZOO_TRAIN_ROUNDS))
+    kw = dict(pi=pi, corpora=e2e.cohort_corpora(cohorts, cfg.vocab_size),
+              batch=bsz, seq=seq, device=device)
+    eval_batch = mods.tree_map(lambda x: x[0], e2e.round_batches(
+        kw["corpora"], 0, batch=bsz, seq=seq, device=device,
+        codebooks=cfg.num_audio_codebooks)["outer"])
+
+    def loss_now(params):
+        with torch.no_grad():
+            return float(model.loss(params, eval_batch)[0])
+
+    loss0 = loss_now(state.params)
+    server_rounds = ZOO_TRAIN_ROUNDS - (1 if "eq8" in routes else 0)
+    seconds, adam_launches, eq8_launches, adam_row = [], [], [], None
+    last, orig = _last_adam(adam, largest=True)
+    try:
+        for k in range(server_rounds):
+            last["armed"] = k == server_rounds - 1 and server == "adam"
+            before = adam.LAUNCHES
+            state, rec = e2e.train_rounds(model, exp, opt, state,
+                                          rounds=range(k, k + 1), **kw)
+            adam_launches.append(adam.LAUNCHES - before)
+            seconds.append(rec[0]["seconds"])
+    finally:
+        adam._update = orig
+    loss1 = loss_now(state.params)
+    if server == "adam" and device == "cuda":
+        before = adam.LAUNCHES
+        adam_row = hold_adam_spmd(torch, adam, last, what=f"{arch} training")
+        adam.LAUNCHES = before          # comparison launches do not count
+    del last
+    check(math.isfinite(loss1) and _finite_tree(torch, mods, state.params),
+          f"{arch}: loss {loss1} or params not finite after "
+          f"{server_rounds} {server} rounds")
+    if device == "cuda" and server == "adam":
+        check(adam_launches == [n_leaves] * server_rounds, f"{arch}: fused "
+              f"Adam launches a round {adam_launches}, not one a leaf "
+              f"({n_leaves})")
+
+    eq8_row, loss2 = None, loss1
+    if "eq8" in routes:
+        exp_f = e2e.experiment_cfg(cfg, staleness=stale, fused_agg=True)
+        sgd = mods.make_optimizer("sgd")
+        check(mods.semi_sync.uses_fused_eq8(sgd, exp_f), "--fused-agg "
+              "settings do not take the Eq.-8 path")
+        st = mods.semi_sync.SemiSyncState(state.params,
+                                          sgd.init(state.params),
+                                          state.buffers, state.staleness,
+                                          state.step)
+        del state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        holds = []
+        orig = _holding_eq8(torch, agg, holds)
+        try:
+            before = agg.LAUNCHES
+            st, rec = e2e.train_rounds(
+                model, exp_f, sgd, st,
+                rounds=range(server_rounds, server_rounds + 1), **kw)
+            eq8_launches.append(agg.LAUNCHES - before)
+        finally:
+            agg.stale_aggregate_flat = orig
+        seconds.append(rec[0]["seconds"])
+        state = st
+        loss2 = loss_now(state.params)
+        check(math.isfinite(loss2) and _finite_tree(torch, mods,
+                                                    state.params),
+              f"{arch}: loss {loss2} or params not finite after the Eq.-8 "
+              f"round")
+        if device == "cuda":
+            check(eq8_launches == [1] and len(holds) == 1, f"{arch}: the "
+                  f"fused round launched Eq. 8 {eq8_launches} times")
+            eq8_row = holds[0]
+            check(math.isfinite(eq8_row["max_abs_err"])
+                  and eq8_row["max_abs_err"] <= eq8_row["tol"],
+                  f"{arch}: Eq. 8 on the path vs its plain version: "
+                  f"{eq8_row['max_abs_err']} > {eq8_row['tol']}")
+            check(eq8_row["fault_err"] > eq8_row["tol"], f"{arch}: the Eq.-8 "
+                  f"check accepts a planted fault ({eq8_row['fault_err']})")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    del state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    route = {"adam": "server Adam", "sgd": "clipped β-SGD"}[server]
+    print(f"[train zoo] {cfg.name}, {cfg.num_layers} layers (full width), "
+          f"{n_params:,} params ({', '.join(dtypes)}, {n_leaves} leaves), "
+          f"{cohorts} cohorts, A {part}, S {stale}, batch {bsz}, seq {seq}, "
+          f"cfg.remat {cfg.remat} (the step differentiates through "
+          f"torch.autograd, where remat checkpoints each layer): {route} "
+          f"rounds "
+          f"{', '.join(f'{s:.2f}' for s in seconds[:server_rounds])} s"
+          + (f", the Eq.-8 round {seconds[-1]:.2f} s" if eq8_launches
+             else "")
+          + f"; fused Adam launches a round {adam_launches}, Eq.-8 "
+          f"launches {eq8_launches}; loss on cohort 0's batch {loss0:.4f} "
+          f"-> {loss1:.4f}" + (f" -> {loss2:.4f}" if eq8_launches else "")
+          + f"; peak memory {peak:.2f} GiB [{smi}]")
+    if adam_row:
+        print(f"[train zoo] {arch}: fused Adam's largest-leaf launch (N "
+              f"{adam_row['n']:,}, p {adam_row['p_dtype']}) vs plain: "
+              f"err {adam_row['max_abs_err']:.3e}, planted fault "
+              f"{adam_row['fault_err']:.3e} rejected; {adam_row['ms']:.3f} ms, "
+              f"plain {adam_row['plain_ms']:.3f} ms, bound "
+              f"{adam_row['bound_ms']:.3f} ms")
+    if eq8_row:
+        print(f"[train zoo] {arch}: Eq. 8's launch (N {eq8_row['n']:,}, C "
+              f"{eq8_row['c']}) vs plain on its own inputs: err "
+              f"{eq8_row['max_abs_err']:.3e} (limit {eq8_row['tol']:.1e}), "
+              f"planted fault {eq8_row['fault_err']:.3e} rejected")
+    return dict(params=n_params, leaves=n_leaves, seconds=seconds,
+                peak_gib=peak, adam_launches=adam_launches,
+                eq8_launches=eq8_launches, losses=[loss0, loss1, loss2],
+                adam=adam_row, eq8=eq8_row)
+
+
+def _hold_cfgs(mods, arch, grad_clip):
+    cfg = dataclasses.replace(mods.get_config(arch).reduced(),
+                              dtype="float32")
+    exp = mods.ExperimentConfig(model=cfg, fl=mods.FLConfig(**ZOO_HOLD_FL),
+                                train=mods.TrainConfig(grad_clip=grad_clip))
+    return cfg, exp
+
+
+def phase_zoo_vs_cpu(torch, agg, mods, *, device="cuda"):
+    """Each family of the zoo at its reduced f32 config, as the CPU parity
+    tests hold it against the JAX package: 2 rounds of the semi-sync step
+    (``ZOO_HOLD_MASKS``, β-SGD fused or clipped as those tests take it) on
+    ``device`` (the kernels on, TF32 off) and on the CPU (the plain
+    versions) from the same state and batches: staleness bitwise, params
+    within 1e-5·(1 + max|p|) a leaf."""
+    import numpy as np
+    out = {}
+    for arch, grad_clip in ZOO_HOLD_ARCHS:
+        cfg, exp = _hold_cfgs(mods, arch, grad_clip)
+        model = mods.build_model(cfg)
+        opt = mods.make_optimizer("sgd")
+        cohorts = len(ZOO_HOLD_MASKS[0])
+        st_cpu = mods.semi_sync.init_state(
+            model, torch.Generator().manual_seed(0), opt, cohorts)
+        _gate_draw(torch, st_cpu.params, "cpu")
+        st_dev = st_cpu._replace(
+            params=mods.tree_map(lambda x: x.to(device), st_cpu.params),
+            buffers=mods.tree_map(lambda x: x.to(device), st_cpu.buffers),
+            staleness=st_cpu.staleness.to(device),
+            step=st_cpu.step.to(device))
+        step = mods.semi_sync.make_semi_sync_step(model, exp, opt, cohorts)
+        rng = np.random.default_rng(0)
+        k_cb = cfg.num_audio_codebooks
+        before = agg.LAUNCHES
+        for m in ZOO_HOLD_MASKS:
+            def one():
+                t = rng.integers(0, cfg.vocab_size, size=(cohorts, 2, 33)
+                                 + ((k_cb,) if k_cb else ())).astype(np.int32)
+                t = torch.from_numpy(t)
+                return {"tokens": t[:, :, :-1], "targets": t[:, :, 1:]}
+            batches = {"inner": one(), "outer": one(), "hessian": one()}
+            mask = torch.tensor(m)
+            st_cpu, _ = step(st_cpu, batches, mask)
+            st_dev, _ = step(st_dev, mods.tree_map(lambda x: x.to(device),
+                                                   batches), mask.to(device))
+        launches = agg.LAUNCHES - before
+        check(torch.equal(st_dev.staleness.cpu(), st_cpu.staleness),
+              f"{arch}: staleness on the card differs from the CPU's")
+        worst = 0.0
+        for path, got, want in zip(mods.tree_paths(st_cpu.params),
+                                   mods.tree_leaves(st_dev.params),
+                                   mods.tree_leaves(st_cpu.params)):
+            scale = 1.0 + float(want.abs().max())
+            err = float((got.cpu() - want).abs().max()) / scale
+            check(math.isfinite(err) and err <= ZOO_HOLD_RTOL,
+                  f"{arch}: params {path} on the card vs the CPU: "
+                  f"{err:.3e} of 1 + max|p| (limit {ZOO_HOLD_RTOL:.0e})")
+            worst = max(worst, err)
+        if device == "cuda" and grad_clip == 0.0:
+            check(launches == len(ZOO_HOLD_MASKS), f"{arch}: Eq. 8 launched "
+                  f"{launches} times in {len(ZOO_HOLD_MASKS)} fused rounds")
+        out[arch] = dict(err=worst, eq8_launches=launches)
+    print("[zoo vs cpu] reduced f32, 2 semi-sync rounds on the card (kernels "
+          "on, TF32 off) against the CPU's plain route from the same state "
+          "and batches, staleness bitwise, worst params error / (1 + "
+          "max|p|): " + "; ".join(
+              f"{arch} ({'fused Eq. 8' if g == 0.0 else 'clipped'}, Eq.-8 "
+              f"launches {out[arch]['eq8_launches']}) {out[arch]['err']:.3e}"
+              for arch, g in ZOO_HOLD_ARCHS)
+          + f" (limit {ZOO_HOLD_RTOL:.0e})")
+    return out
+
+
+def phase_examples(torch, agg, mods, smi, *, device="cuda", max_rounds=None):
+    """Each of ``repro_torch.examples``' ``main()`` at its own settings on
+    ``device``: Π row sums equal A (⌈A / cells⌉ on a hierarchy's edge
+    rounds), losses finite, the quickstart's personalized loss falls,
+    ``mobile_edge``'s hierarchy merges in the cloud, and the simulations
+    launch Eq. 8.  Prints each example's seconds."""
+    import importlib
+
+    import numpy as np
+    argv = ["--device", str(device)]
+    seconds, eq8 = {}, {}
+
+    def run(name, **kw):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        before = agg.LAUNCHES
+        t0 = time.perf_counter()
+        res = mod.main(argv, **kw)
+        seconds[name] = time.perf_counter() - t0
+        eq8[name] = agg.LAUNCHES - before
+        return mod, res
+
+    def sims_ok(name, results, a):
+        for label, r in results.items():
+            want = -(-a // r.n_cells)     # a hierarchy's edge rounds
+            check(r.pi.shape[0] > 0 and set(r.pi.sum(1).tolist()) == {want},
+                  f"examples: {name} {label}: Π row sums "
+                  f"{sorted(set(r.pi.sum(1).tolist()))}, not {want}")
+            check(np.isfinite(r.losses).all() and np.isfinite(
+                r.global_losses).all(), f"examples: {name} {label}: losses "
+                  f"not finite")
+
+    rk = {} if max_rounds is None else {"max_rounds": max_rounds}
+    _, res = run("quickstart", **rk)
+    sims_ok("quickstart", {"": res}, 5)
+    check(res.losses[-1] < res.losses[0], f"examples: quickstart's "
+          f"personalized loss {res.losses[0]} -> {res.losses[-1]}")
+    mod, res = run("compare_algorithms", **rk)
+    for label, r in res.items():
+        a = {"sync": 10, "semi": 3, "async": 1}[mod.ALGORITHMS[label][1]]
+        sims_ok("compare_algorithms", {label: r}, a)
+    _, res = run("wireless_scheduling")
+    check(res["round_time_opt"] <= res["round_time_eq"], "examples: "
+          "Theorem 2's round is slower than the equal split")
+    _, res = run("mobile_edge", **rk)
+    sims_ok("mobile_edge", res, 6)
+    check(res["hierarchy"].cloud_rounds > 0, "examples: mobile_edge's "
+          "hierarchy merged nothing in the cloud")
+    _, res = run("hetero_cells", **rk)
+    sims_ok("hetero_cells", res, 6)
+    _, res = run("serve_personalized")
+    check(all(math.isfinite(x) for x in res["meta_losses"]
+              + res["adapted_losses"]), "examples: serve_personalized's "
+          "losses not finite")
+    sims = ("quickstart", "compare_algorithms", "mobile_edge",
+            "hetero_cells")
+    if device == "cuda":
+        check(all(eq8[n] > 0 for n in sims), f"examples: Eq.-8 launches "
+              f"{eq8}")
+    print("[examples] seconds " + ", ".join(
+        f"{n} {s:.1f}" for n, s in seconds.items()) + "; Eq.-8 launches "
+          + ", ".join(f"{n} {eq8[n]}" for n in sims) + f" [{smi}]")
+    return dict(seconds=seconds, launches=sum(eq8[n] for n in sims),
+                per_example={n: eq8[n] for n in sims})
+
+
+# ---------------------------------------------------------------------------
 # slice 6: the mobile multi-cell and open-world path
 # ---------------------------------------------------------------------------
 
@@ -2668,6 +3067,13 @@ MOE_MIN_HELD = {"bf16": 0.5, "f32": 0.9}
 # logits against a teacher-forced f32 forward (both models, 2 layers):
 # 8.4e-6, 7.1e-6 and 6.3e-6 on an NVIDIA H100 80GB HBM3 at 700 W.
 MOE_F32_ROW_RTOL = 1e-4
+# Mixtral's layers held one at a time in bf16 (teacher forced on the xla
+# path's input, pallas against xla, on the tokens that route alike in the
+# layer), as mamba2's layers are held: half the logits' limit.  Layer 0
+# read 1.045e-2 (its input, the embedding, is small beside the attention
+# output), the others 3.0e-3-8.5e-3, and flash with the causal mask
+# dropped 1.344 (NVIDIA H100 80GB HBM3, 700 W).
+MOE_LAYER_ROW_RTOL = 2.5e-2
 # Served against teacher forcing, the experts' capacity must drop nothing:
 # the gather path's capacity grows with a call's token count, so prefill
 # (8,192 tokens), decode (4) and the forward (8,316) would drop different
@@ -2775,6 +3181,44 @@ def _forward_f32_streamed(torch, mods, model, params, tokens):
     return model._unembed(top, x)
 
 
+def _mixtral_layers(torch, fa, mods, model_p, model_x, params, tokens):
+    """Teacher forced in bf16: each layer run under pallas and under xla on
+    the xla path's input to it; the max token row rel of the two outputs
+    over the tokens whose (expert, kept) pairs agree in that layer, and
+    that share, per layer; and layer 0 under flash with the causal mask
+    dropped against xla, over the same kind of rows."""
+    b, sl = tokens.shape
+    moe = model_x.cfg.moe
+    positions = torch.arange(sl, dtype=torch.int32, device=tokens.device)
+    window = model_x.cfg.sliding_window
+    x = model_x._embed(params, tokens)
+    rels, shares, fault = [], [], float("nan")
+
+    def layer(model, lp, x):
+        routes = []
+        with _routing(mods, routes):
+            out, _ = model._layer_apply(lp, x, positions, None, window)
+        return out, _route_keys(mods, routes[0], moe).reshape(b, sl, -1)
+
+    for i in range(model_x.cfg.num_layers):
+        lp = mods.tree_map(lambda t: t[i], params["layers"])
+        want, keys_x = layer(model_x, lp, x)
+        got, keys_p = layer(model_p, lp, x)
+        agree = (keys_p == keys_x).all(-1)
+        rels.append(float(_row_rel(got, want)[agree].max()))
+        shares.append(float(agree.float().mean()))
+        if i == 0:
+            with _no_causal(fa):
+                bad, keys_f = layer(model_p, lp, x)
+            agree_f = (keys_f == keys_x).all(-1)
+            fault = float(_row_rel(bad, want)[agree_f].max()) \
+                if bool(agree_f.any()) else float("inf")
+            del bad
+        x = want
+        del got, lp
+    return rels, shares, fault
+
+
 def _moe_cfg(mods, arch, reduce):
     """The scoring config at its depth cut and the stream length."""
     cfg = mods.get_config(arch)
@@ -2824,6 +3268,8 @@ def phase_score_mixtral(torch, fa, mods, *, reduce=False, device="cuda"):
                                         "bf16 logits, pallas vs xla",
                                         "bf16")
         del logits_p
+        layer_rel, layer_share, fault_layer = _mixtral_layers(
+            torch, fa, mods, model_p, model_x, params, batch["tokens"])
         with _no_causal(fa):
             logits_f, routes_f = _predict_routed(mods, model_p, params,
                                                  batch)
@@ -2871,6 +3317,14 @@ def phase_score_mixtral(torch, fa, mods, *, reduce=False, device="cuda"):
           f"not the same pairs; held: the {share:.1%} that route alike in "
           f"every layer, logits max token row rel {held:.3e} (limit "
           f"{SCORE_LOGIT_ROW_RTOL:.0e}); every token, not held: {every:.3e}")
+    print(f"[score] each layer's bf16 output on the xla path's input, "
+          f"pallas vs xla, on the tokens that route alike in that layer: "
+          f"max token row rel by layer " + ", ".join(
+              f"{r:.3e}" for r in layer_rel) + f" (limit "
+          f"{MOE_LAYER_ROW_RTOL:.1e}; held {min(layer_share):.1%}-"
+          f"{max(layer_share):.1%} of the tokens), beside the bf16 logits' "
+          f"{held:.3e}; planted fault 'causal mask dropped' on layer 0: "
+          f"{fault_layer:.3e}")
     print(f"[score] f32 copy of the params, pallas vs xla: {set32} tokens "
           f"change their expert set, {drop32} their kept pairs; held rows "
           f"max token row rel {f32_held:.3e} (limit "
@@ -2885,6 +3339,11 @@ def phase_score_mixtral(torch, fa, mods, *, reduce=False, device="cuda"):
           f"pallas logits vs xla on the held rows: {held:.3e}")
     check(math.isfinite(f32_held) and f32_held <= MOE_F32_ROW_RTOL,
           f"f32 logits, pallas vs xla on the held rows: {f32_held:.3e}")
+    check(all(math.isfinite(r) and r <= MOE_LAYER_ROW_RTOL
+              for r in layer_rel), f"a layer's bf16 output, pallas vs xla "
+          f"on the held rows: {layer_rel}")
+    check(not fault_layer <= MOE_LAYER_ROW_RTOL, f"the planted fault passes "
+          f"the per-layer check ({fault_layer:.3e})")
     check(fault_share < MOE_MIN_HELD["bf16"]
           or fault_rel > SCORE_LOGIT_ROW_RTOL,
           f"the planted fault passes the held check ({fault_rel:.3e})")
@@ -2897,7 +3356,7 @@ def phase_score_mixtral(torch, fa, mods, *, reduce=False, device="cuda"):
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return dict(launches=launches, loss_ms=t_p, xla_ms=t_x,
                 call_rel=call_rel, logit_rel=held, set_flips=set_flips,
-                tokens=n_tok, f32_logit_rel=f32_held)
+                tokens=n_tok, f32_logit_rel=f32_held, layer_rel=layer_rel)
 
 
 def phase_score_deepseek_v2(torch, fa, mods, *, reduce=False,
@@ -3479,18 +3938,21 @@ def hold_eq8_spmd(torch, agg, args):
                 plain_ms=t_plain, bound_ms=bound, bound_by=by)
 
 
-def _last_adam(adam):
+def _last_adam(adam, largest=False):
     """Wrap the fused Adam launch (``fused_adam._update``, which the tree's
     mesh route runs on each local shard) to keep the last launch's inputs
-    and outputs while ``last["armed"]`` is set: p, m, v, the scalars and
-    the outputs by reference (the old and new state hold them anyway), the
-    gradient, which the round frees, as a host copy."""
+    and outputs while ``last["armed"]`` is set (with ``largest``, those of
+    the launch on the largest leaf): p, m, v, the scalars and the outputs
+    by reference (the old and new state hold them anyway), the gradient,
+    which the round frees, as a host copy."""
     last = {"armed": False}
     orig = adam._update
 
     def recording(p, m, v, g, scal, *, b1, b2, eps):
         out = orig(p, m, v, g, scal, b1=b1, b2=b2, eps=eps)
-        if p.is_cuda and last["armed"]:
+        if p.is_cuda and last["armed"] and not (
+                largest and "args" in last
+                and last["args"][0].numel() >= p.numel()):
             last.update(args=(p, m, v, g.cpu(), scal), out=out)
         return out
 
@@ -3498,25 +3960,25 @@ def _last_adam(adam):
     return last, orig
 
 
-def hold_adam_spmd(torch, adam, last):
-    """The fused Adam kernel against its plain version on the mesh path's
-    own last launch (a local shard's p, m, v, g and [lr, bc1, bc2]); the
-    plain version with the bias corrections dropped must be rejected.
-    Timed once beside the plain version and the bound."""
+def hold_adam_spmd(torch, adam, last, what="spmd"):
+    """The fused Adam kernel against its plain version on a path's own
+    last launch (on the mesh, a local shard's p, m, v, g and [lr, bc1,
+    bc2]); the plain version with the bias corrections dropped must be
+    rejected.  Timed once beside the plain version and the bound."""
     p, m, v, g, scal = last["args"]
     g = g.cuda()
     want = adam.fused_adam_plain(p, m, v, g, scal, b1=ADAM_B1, b2=ADAM_B2,
                                  eps=ADAM_EPS)
     ok, err = adam_close(torch, last["out"], want)
     n = int(p.numel())
-    check(ok, f"spmd fused Adam at N={n}: kernel vs its plain version "
+    check(ok, f"{what} fused Adam at N={n}: kernel vs its plain version "
           f"outside the limits (max abs p error {err:.3e})")
     no_bc = torch.stack([scal[0], torch.ones_like(scal[1]),
                          torch.ones_like(scal[2])])
     bad, fault_err = adam_close(torch, adam.fused_adam_plain(
         p, m, v, g, no_bc, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), want)
-    check(not bad, "spmd fused Adam: the check accepts the planted fault "
-          "'bias corrections dropped'")
+    check(not bad, f"{what} fused Adam: the check accepts the planted "
+          f"fault 'bias corrections dropped'")
     flat = [x.reshape(-1) for x in (p, m, v, g)]
     t_kernel = device_ms(torch, lambda: adam._update(
         *flat, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), reps=3, trials=5)
@@ -3732,8 +4194,17 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
 
     # the first round's meta-gradients, finite, then the state after both
     # rounds (the first round's unclipped β-SGD step moves mamba2's params
-    # far enough that the second round's gradients overflow, in both
-    # routes alike: bit patterns compared, non-finite elements counted)
+    # far enough that round 2's meta-gradients go non-finite, in both
+    # routes alike: bit patterns compared, non-finite elements counted).
+    # Part of it was the port's: torch.logaddexp's second derivative read
+    # 0 · inf = NaN where softplus's input fell below -88 (28,490,129
+    # elements in 10 buffer leaves before ``layers.softplus``; at 8 layers
+    # on the CPU the JAX package stayed finite on the same inputs,
+    # ``scripts/mamba2_fused_agg_overflow.py``).  What is left at 48
+    # layers (one layer's in_proj, conv, A, D, dt and pre-norm gradients,
+    # and the embedding rows of the batch's tokens, in both refreshed
+    # cohorts: 11,070,144 elements in 8 leaves) is not held against the
+    # reference, which the CPU runs only to 8 layers at full width.
     for path, x, y in zip(mods.tree_paths(st_plain.buffers), first_mesh,
                           first_plain):
         check(bool(torch.isfinite(y).all()) and same_bits(torch, x, y),
@@ -3779,7 +4250,8 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
           f"{', '.join(f'{o:+.1%}' for o in overhead)}; params, buffers and "
           f"staleness bitwise equal (round 0's meta-gradients finite; after "
           f"round 1, bit patterns, non-finite elements in both: "
-          f"{sum(nonfinite.values())} in {len(nonfinite)} leaves); "
+          f"{sum(nonfinite.values())} in {len(nonfinite)} leaves: "
+          f"{nonfinite}); "
           f"Eq.-8 launches {launches} on the mesh "
           f"({plain_launches} unsharded); peak memory above each route's "
           f"start: mesh {peak:.2f} GiB, plain {peak_plain:.2f} GiB [{smi}]")
@@ -3846,9 +4318,8 @@ def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
     def local(x):
         return x.to_local() if hasattr(x, "to_local") else x
 
-    # the update's outputs must be finite; the buffers (meta-gradients at
-    # the moved params) are compared by bit pattern, non-finite ones
-    # counted, as in the fused rounds
+    # the update's outputs and the buffers (meta-gradients at the moved
+    # params) bitwise equal and finite, as in the fused rounds
     nonfinite = 0
     for what, a, b in (("params", st_mesh.params, st_plain.params),
                        ("opt_state", st_mesh.opt_state, st_plain.opt_state),
@@ -3856,10 +4327,9 @@ def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
         for path, x, y in zip(mods.tree_paths(a), mods.tree_leaves(a),
                               mods.tree_leaves(b)):
             bad = int((~torch.isfinite(y.float())).sum())
-            check(same_bits(torch, local(x), y) and (
-                what == "buffers" or not bad), f"spmd adam: {what} {path} "
-                f"of the mesh route differ from the plain step's, or are "
-                f"not finite")
+            check(same_bits(torch, local(x), y) and not bad,
+                  f"spmd adam: {what} {path} of the mesh route differ from "
+                  f"the plain step's, or are not finite ({bad})")
             nonfinite += bad
     check(same_bits(torch, local(st_mesh.staleness), st_plain.staleness),
           "spmd adam: staleness differs")
@@ -3879,8 +4349,8 @@ def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
           f"{list(SPMD_MASKS)}: DTensor state "
           f"s/round {', '.join(f'{s:.3f}' for s in mesh_s)}; plain step "
           f"{', '.join(f'{s:.3f}' for s in plain_s)}; params, m, v, t "
-          f"({t}), buffers and staleness bitwise equal ({nonfinite} "
-          f"non-finite buffer elements in both); fused Adam launches "
+          f"({t}), buffers and staleness bitwise equal and finite "
+          f"({nonfinite} non-finite elements); fused Adam launches "
           f"a round {mesh_ex['launches']} on the mesh (local shards), "
           f"{plain_ex['launches']} unsharded; peak memory above each "
           f"route's start: mesh {peak:.2f} GiB, plain {peak_plain:.2f} GiB "
@@ -4012,7 +4482,8 @@ def phase_spmd(torch, agg, fa, adam, mods, smi):
 def import_port():
     """The port's entry points, imported after the checks that need none."""
     from repro_torch.config import (ExperimentConfig, FLConfig,
-                                    MobilityConfig, ScenarioConfig)
+                                    MobilityConfig, ScenarioConfig,
+                                    TrainConfig)
     from repro_torch.configs import get_config
     from repro_torch.core import perfed, semi_sync
     from repro_torch.core.scheduler import (greedy_schedule,
@@ -4135,6 +4606,28 @@ def main():
     adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
                               agg, mods)
     torch.cuda.empty_cache()
+    # slice 13: the zoo's training path, counted from 0
+    adam.LAUNCHES = agg.LAUNCHES = 0
+    zoo_train = {}
+    for arch, layers, cohorts, part, routes in ZOO_TRAIN:
+        gc.collect()                    # earlier phases' reference cycles
+        torch.cuda.empty_cache()
+        print(f"[train zoo] allocated before {arch}: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        zoo_train[arch] = timed(f"train {arch} ({layers} layers)",
+                                phase_train_zoo, torch, adam, agg, mods,
+                                arch, layers, cohorts, part, routes, smi)
+        torch.cuda.empty_cache()
+    zoo_adam, zoo_eq8 = adam.LAUNCHES, agg.LAUNCHES
+    agg.LAUNCHES = 0
+    zoo_cpu = timed("zoo on the card vs the CPU", phase_zoo_vs_cpu, torch,
+                    agg, mods)
+    zoo_cpu_eq8 = agg.LAUNCHES
+    torch.cuda.empty_cache()
+    agg.LAUNCHES = 0
+    examples = timed("examples", phase_examples, torch, agg, mods, smi)
+    examples_eq8 = agg.LAUNCHES
+    torch.cuda.empty_cache()
     spmd = timed("spmd (slice 10)", phase_spmd, torch, agg, fa, adam, mods,
                  smi)
     check("jax" not in sys.modules and not any(
@@ -4164,7 +4657,26 @@ def main():
                      "world-1 NCCL mesh, 2 rounds, one launch a round on "
                      "the local shard through local_map",
              "launches": spmd["mamba"]["launches"],
-             **(spmd["mamba"]["row"] or {})}},
+             **(spmd["mamba"]["row"] or {})},
+         "zoo_train": {
+             "path": "train_e2e's rounds at full width, one --fused-agg "
+                     "round each (recurrentgemma-2b, llama-3.2-vision-11b, "
+                     "musicgen-large), each launch held against the plain "
+                     "version on its own inputs",
+             "launches": zoo_eq8,
+             "holds": {arch: r["eq8"] for arch, r in zoo_train.items()
+                       if r["eq8"]}},
+         "zoo_vs_cpu": {
+             "path": "2 fused semi-sync rounds of the reduced f32 "
+                     "recurrentgemma, deepseek-v2 and musicgen, against "
+                     "the CPU",
+             "launches": zoo_cpu_eq8,
+             "max_params_err_rel": {a: r["err"] for a, r in zoo_cpu.items()}},
+         "examples": {
+             "path": "repro_torch.examples' simulations at their own "
+                     "settings",
+             "launches": examples_eq8,
+             "per_example": examples["per_example"]}},
         {"name": "fused_adam_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
          "replaces": "src/repro/kernels/fused_adam.py:36",
@@ -4174,6 +4686,14 @@ def main():
          "dtype": f"p {adam_shape[1]}, g {adam_shape[2]}, m/v float32",
          "library": "torch.optim.Adam(fused=True).step() on an f32 copy",
          **adam_row,
+         "zoo_train": {
+             "path": "server Adam rounds of train_e2e's loop at full "
+                     "width, one launch a leaf a round, the largest "
+                     "leaf's launch held against the plain version",
+             "launches": zoo_adam,
+             "per_arch": {arch: {"launches_a_round": r["adam_launches"],
+                                 "largest_leaf_launch": r["adam"]}
+                          for arch, r in zoo_train.items() if r["adam"]}},
          "spmd": {
              "path": f"mamba2-370m semi-sync step (full width, "
                      f"{spmd['mamba']['adam']['layers']} layers) with the "
@@ -4209,6 +4729,7 @@ def main():
                      "launch per layer; deepseek-v2-236b's MLA runs sdpa, "
                      "as in the JAX package",
              "launches": mixtral["launches"],
+             "layer_row_rel": mixtral["layer_rel"],
              "deepseek_v2_launches": deepseek["launches"],
              "shape": list(FLASH_MOE_SHAPE), "dtype": "bfloat16",
              **attn[("flash", torch.bfloat16, FLASH_MOE_SHAPE)],

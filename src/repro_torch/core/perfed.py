@@ -104,6 +104,7 @@ def perfed_grad(loss_fn: LossFn, params, batches: Dict[str, Any], alpha, *,
         g_outer = grad_autograd(loss_fn, w_adapted, batches["outer"])
     else:
         g_outer = _grad(loss_fn, w_adapted, batches["outer"])
+    del w_adapted                 # not held through the HVP
     if first_order:
         return g_outer
     h = (hvp_autograd if autograd else hvp)(loss_fn, params,

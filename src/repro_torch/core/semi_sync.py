@@ -338,6 +338,9 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
                     gnorm = zero
                 new_params, new_opt = optimizer.update(agg, state.opt_state,
                                                        state.params, fl.beta)
+                # the f32 aggregate (4 B a param) is not held through the
+                # refresh
+                del agg
                 if mesh is not None:
                     new_params = tree_map(_like, new_params, state.params)
 
@@ -376,10 +379,18 @@ def _refresh_plain(model, cfg, params, cohort_batches, buffers, refresh):
     for c in range(refresh.shape[0]):
         fresh = _meta_grad(model, cfg, params,
                            tree_map(lambda x: x[c], cohort_batches))
-        rows.append(tree_map(
-            lambda f, b: torch.where(refresh[c], f.to(b.dtype), b[c]),
-            fresh, buffers))
-    return tree_map(lambda b, *r: torch.stack(r), buffers, *rows)
+        rows.append([torch.where(refresh[c], f.to(b.dtype), b[c])
+                     for f, b in zip(tree_leaves(fresh),
+                                     tree_leaves(buffers))])
+        del fresh
+    # stacked a leaf at a time, each leaf's rows dropped once stacked, so
+    # the rows and the new buffers are not held whole at once
+    out = []
+    for i in range(len(rows[0])):
+        out.append(torch.stack([r[i] for r in rows]))
+        for r in rows:
+            r[i] = None
+    return tree_unflatten(buffers, out)
 
 
 # ---------------------------------------------------------------------------

@@ -171,6 +171,25 @@ def _stack_leafwise(payloads):
     return payloads
 
 
+AGG_CHUNK = 1 << 26     # a leaf's elements a masked-mean step reads
+
+
+def _masked_mean(mask: torch.Tensor, bl: torch.Tensor, a: torch.Tensor):
+    """One leaf's masked mean, ``AGG_CHUNK`` elements at a time: an f32
+    copy of all C rows of a large bf16 leaf (a 655M-row embedding at C 4
+    is 10.5 GB) is not made at once.  Each element's sum over c is the
+    same ``tensordot`` whatever the chunk."""
+    n = bl[0].numel() if bl.shape[0] else 0
+    if n <= AGG_CHUNK:
+        return torch.tensordot(mask, bl.to(torch.float32), dims=1) / a
+    rows = bl.reshape(bl.shape[0], n)
+    out = torch.empty(n, dtype=torch.float32, device=bl.device)
+    for i in range(0, n, AGG_CHUNK):
+        out[i:i + AGG_CHUNK] = torch.tensordot(
+            mask, rows[:, i:i + AGG_CHUNK].to(torch.float32), dims=1) / a
+    return out.reshape(bl.shape[1:])
+
+
 def masked_aggregate_tree(payloads, mask: torch.Tensor):
     """Σ_c mask_c · payload_c / max(Σ mask, 1) as an f32 tree.
 
@@ -179,9 +198,7 @@ def masked_aggregate_tree(payloads, mask: torch.Tensor):
     stacked = _stack_leafwise(payloads)
     mask = mask.to(torch.float32)
     a = torch.clamp(mask.sum(), min=1.0)
-    return tree_map(
-        lambda bl: torch.tensordot(mask, bl.to(torch.float32), dims=1) / a,
-        stacked)
+    return tree_map(lambda bl: _masked_mean(mask, bl, a), stacked)
 
 
 def stale_aggregate_tree(params, payloads, mask: torch.Tensor, *, beta,

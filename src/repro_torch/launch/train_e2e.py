@@ -5,8 +5,9 @@ The port of the JAX package's ``examples/train_e2e.py``, with the same CLI
 plus ``--device`` (the card unless ``--device cpu``).  Default runs a ~8M-
 param Yi-family model; ``--model-scale 100m`` a ~100M-param variant.  The
 round loop is ``train_rounds``, which takes any model and config, so other
-callers drive other models (full-width mamba2-370m in ``chip_smoke.py``)
-through the same loop.  Batches are drawn with numpy from a seed per round.
+callers drive other models (full-width mamba2-370m and the rest of the zoo
+in ``chip_smoke.py``) through the same loop.  Batches are drawn with numpy
+from a seed per round.
 ``--ckpt-dir DIR`` saves the final params to ``DIR/ckpt_<rounds>.npz``
 (``checkpoint.save_checkpoint``, the reference's file format).
 
@@ -65,9 +66,12 @@ def cohort_corpora(n: int, vocab: int) -> List[np.ndarray]:
             for i in range(n)]
 
 
-def round_batches(corpora, k: int, *, batch: int, seq: int, device):
+def round_batches(corpora, k: int, *, batch: int, seq: int, device,
+                  codebooks: int = 0):
     """Round k's {"inner", "outer", "hessian"} batches, each leaf [n_cohorts,
-    batch, seq], drawn from k alone."""
+    batch, seq], drawn from k alone; with ``codebooks`` K > 0 (the audio
+    family) each token is tiled over the K codebooks, [n_cohorts, batch,
+    seq, K], as ``launch.train.lm_batch`` does."""
     rng = np.random.default_rng([0, k])
 
     def one():
@@ -75,8 +79,11 @@ def round_batches(corpora, k: int, *, batch: int, seq: int, device):
         for c in corpora:
             starts = rng.integers(0, len(c) - seq - 1, size=batch)
             wins.append(np.stack([c[s:s + seq + 1] for s in starts]))
-        w = torch.from_numpy(np.stack(wins)).to(device)
-        return {"tokens": w[..., :-1], "targets": w[..., 1:]}
+        w = np.stack(wins)
+        if codebooks:
+            w = np.repeat(w[..., None], codebooks, axis=-1)
+        w = torch.from_numpy(w).to(device)
+        return {"tokens": w[:, :, :-1], "targets": w[:, :, 1:]}
 
     return {"inner": one(), "outer": one(), "hessian": one()}
 
@@ -86,15 +93,17 @@ def train_rounds(model, cfg: ExperimentConfig, opt, state, *, pi: np.ndarray,
                  log_every: Optional[int] = None):
     """Run the semi-synchronous rounds ``rounds`` (indices into the Alg.-2
     schedule ``pi``) from ``state``.  Returns (state, one record per round:
-    mask, seconds, metrics)."""
+    mask, seconds, metrics).  An audio model's batches carry its K
+    codebooks."""
     step_fn = semi_sync.make_semi_sync_step(model, cfg, opt, len(corpora))
+    codebooks = model.cfg.num_audio_codebooks
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))
     records = []
     t0 = time.time()
     for k in rounds:
         batches = round_batches(corpora, k, batch=batch, seq=seq,
-                                device=device)
+                                device=device, codebooks=codebooks)
         mask = torch.as_tensor(pi[k], dtype=torch.float32, device=device)
         sync()
         t_round = time.perf_counter()

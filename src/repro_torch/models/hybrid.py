@@ -44,11 +44,6 @@ def _lru_width(cfg: ModelConfig) -> int:
     return cfg.hybrid.lru_width or cfg.d_model
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 # ---------------------------------------------------------------------------
 # RG-LRU core
 # ---------------------------------------------------------------------------
@@ -202,7 +197,7 @@ class RecurrentGemmaLM:
             new_conv = pad[:, pad.shape[1] - (cw - 1):, :]
         r = torch.sigmoid(u_c @ pl["lru_gate_a"]).float()
         gi = torch.sigmoid(u_c @ pl["lru_gate_i"]).float()
-        log_a = -_C_RGLRU * _softplus(pl["lru_a"])[None, None, :] * r
+        log_a = -_C_RGLRU * L.softplus(pl["lru_a"])[None, None, :] * r
         uf = u_c.float()
         if decode:
             h_last = rglru_step(h_state.float(), uf[:, 0, :], log_a[:, 0, :],

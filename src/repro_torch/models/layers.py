@@ -587,6 +587,21 @@ def mla_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
 # MLPs
 # ---------------------------------------------------------------------------
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x), the value ``logaddexp(x, 0)``'s,
+    its derivatives those of max(x, 0) + log1p(e^-|x|), finite at every
+    order.  ``torch.logaddexp``'s backward divides by 1 + e^-x, which
+    overflows below x ≈ -88, and a Hessian-vector product by reverse over
+    reverse then reads 0 · inf = NaN there (the JAX package's softplus
+    has a guarded JVP).  The written-out form alone is not the value:
+    torch's vectorised ``log1p`` is off by up to 1.5e-4 relative.  -|x|
+    is x - 2·relu(x): ``abs``'s double backward has no DTensor rule."""
+    pos = torch.relu(x)
+    smooth = pos + torch.log1p(torch.exp(x - 2.0 * pos))
+    return torch.logaddexp(x, torch.zeros_like(x)).detach() \
+        + (smooth - smooth.detach())
+
+
 def _act(name: str):
     if name == "silu":
         return F.silu

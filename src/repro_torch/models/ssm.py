@@ -45,11 +45,6 @@ def _dims(cfg: ModelConfig):
     return d_inner, nheads, s.head_dim, s.state_dim
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """Stable 'segment sum': out[..., i, j] = sum_{j < m <= i} x[..., m].
 
@@ -256,7 +251,7 @@ class Mamba2LM:
         xs = u[..., :d_inner].reshape(bsz, lq, h, p)
         b = u[..., d_inner:d_inner + n]
         c = u[..., d_inner + n:]
-        dt = _softplus(dt_raw.float() + pl["dt_bias"])
+        dt = L.softplus(dt_raw.float() + pl["dt_bias"])
         a = -torch.exp(pl["A_log"])
         return z, pad, xs, dt, a, b, c
 
@@ -344,7 +339,7 @@ class Mamba2LM:
         xs = u[:, :d_inner].reshape(-1, h, p)
         b = u[:, d_inner:d_inner + n]
         c = u[:, d_inner + n:]
-        dt = _softplus(dt_raw[:, 0, :].float() + pl["dt_bias"])
+        dt = L.softplus(dt_raw[:, 0, :].float() + pl["dt_bias"])
         a = -torch.exp(pl["A_log"])
         state, y = ssd_step(lc["state"].float(), xs.float(), dt, a,
                             b.float(), c.float())

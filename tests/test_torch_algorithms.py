@@ -7,15 +7,32 @@ rounds): host event math (times, Π, wait fraction, total time, dispatch
 counts) bitwise, losses and final params within rtol 1e-5, atol 1e-6.
 Also the Theorem-1 / Corollary-1 expressions of ``core/convergence.py``,
 which must equal the reference's bit for bit.
+
+The end-to-end knobs, each one case of one test through the same runner
+(host event math bitwise, losses and params within rtol 1e-5, atol
+1e-6): ``staleness_discount`` < 1, fedprox with ``local_epochs=2``,
+``bits_per_param=16`` uploads, ``alpha_spread``, char_lstm on
+``sequence_clients`` (the synthetic Shakespeare roles), n 40 with A 10,
+and LeNet-5 on synthetic CIFAR, each 2 rounds at ``eval_every=2`` (the
+LeNet-5 bound: its conv sums drift ~1e-6 of their scale from XLA's,
+which a diverging run would amplify).
 """
 import dataclasses
 
 import pytest
 from test_torch_mobility import hold_pair, run_pair
+from test_torch_semi_sync import one_thread
 
 from repro.core import convergence as ref_conv
+from repro.data import partition_noniid as ref_partition_noniid
+from repro.data import synthetic_cifar as ref_synthetic_cifar
+from repro.data import synthetic_shakespeare as ref_synthetic_shakespeare
+from repro.data.partition import sequence_clients as ref_sequence_clients
 from repro_torch.core import convergence as conv
 from repro_torch.core import fosp_bound, step_condition
+from repro_torch.data import partition_noniid, synthetic_cifar
+from repro_torch.data.partition import sequence_clients
+from repro_torch.data.synthetic import synthetic_shakespeare
 
 GRID = [(algo, mode) for algo in ("fedavg", "fedprox", "perfed")
         for mode in ("sync", "semi", "async")] + \
@@ -32,6 +49,43 @@ def test_algorithm_grid_matches_reference(algo, mode):
     assert port.pi.shape[0] == 5
     want_a = {"sync": 8, "semi": 3, "async": 1}[mode]
     assert set(port.pi.sum(1).tolist()) == {want_a}
+
+
+def _shakespeare(n):
+    return (ref_sequence_clients(ref_synthetic_shakespeare(n_roles=n), n),
+            sequence_clients(synthetic_shakespeare(n_roles=n), n))
+
+
+def _cifar(n):
+    return (ref_partition_noniid(ref_synthetic_cifar(n=600), n, n_labels=4),
+            partition_noniid(synthetic_cifar(n=600), n, n_labels=4))
+
+
+# name: (n, A, S, run_pair keywords)
+KNOBS = {
+    "staleness_discount": (8, 3, 3, dict(
+        cfg_kw=dict(staleness_discount=0.6))),
+    "fedprox_local_epochs_2": (8, 3, 3, dict(
+        algorithm="fedprox", cfg_kw=dict(local_epochs=2))),
+    "bits_per_param_16": (8, 3, 3, dict(
+        cfg_kw=dict(wireless=dict(bits_per_param=16)))),
+    "alpha_spread": (8, 3, 3, dict(cfg_kw=dict(alpha_spread=0.5))),
+    "char_lstm_sequence_clients": (4, 2, 3, dict(
+        clients=_shakespeare(4), cfg_kw=dict(arch="char_lstm"))),
+    "n40_a10": (40, 10, 3, dict(data_n=2000)),
+    "lenet5": (4, 2, 3, dict(clients=_cifar(4), cfg_kw=dict(arch="lenet5"))),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_end_to_end_knob_matches_reference(knob):
+    n, a, s, kw = KNOBS[knob]
+    run = dict(dict(max_rounds=2, eval_every=2, seed=0), **kw)
+    with one_thread():
+        ref, ref_params, port = run_pair(n, a, s, **run)
+    hold_pair(ref, ref_params, port)
+    assert port.pi.shape[0] == run["max_rounds"]
+    assert set(port.pi.sum(1).tolist()) == {a}
 
 
 _SMOOTH = [ref_conv.SmoothnessParams(),

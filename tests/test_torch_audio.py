@@ -17,7 +17,10 @@ K], one per codebook, logits [B, L, K, V].
   the port's own full forward;
 * full-width param and cache layouts on ``meta`` (3,254,978,560
   parameters); serve (prompts and tokens [B, L, K]) and ``launch.train
-  --mode scale`` on the CPU.
+  --mode scale`` on the CPU;
+* three semi-synchronous rounds (the fused Eq.-8 route) against the
+  reference's step, each cohort's tokens [b, seq, K] drawn for every
+  codebook on its own (``test_torch_semi_sync.hold_semi_sync_rounds``).
 """
 import functools
 
@@ -30,9 +33,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve, train
-from repro_torch.utils.tree import from_numpy_tree
+from repro_torch.utils.tree import from_numpy_tree, tree_leaves
 from test_torch_moe import (TOL, carried, hold_full_width_layout,
                             hold_prefill_and_decode, run_serve, tokens)
+from test_torch_semi_sync import hold_semi_sync_rounds, lm_batches
 
 ARCH = "musicgen_large"
 MUSICGEN_PARAMS = 3_254_978_560
@@ -145,3 +149,22 @@ def test_train_scale_runs_on_the_cpu(capsys):
     assert tuple(state.params["embedding"]["lm_head"].shape) == \
         (4, 256, 512)
     assert "step    1 loss=" in capsys.readouterr().out
+
+
+def test_semi_sync_rounds_match_reference():
+    """The fused Eq.-8 route (β-SGD, no clipping) on [n, b, seq, K]
+    tokens."""
+    drawn = []
+
+    def draw(rng, cfg):
+        b = lm_batches(rng, cfg.vocab_size, codebooks=cfg.num_audio_codebooks)
+        drawn.append(b["inner"]["tokens"])
+        return b
+
+    _, state = hold_semi_sync_rounds(ARCH, 0.0, draw=draw)
+    toks = drawn[0]
+    assert toks.shape[-1] == 4 and (toks[..., 0] != toks[..., 1]).any()
+    # every codebook's head and embedding took gradients
+    heads = state.buffers["embedding"]["lm_head"][2]
+    assert all(bool(heads[i].any()) for i in range(heads.shape[0]))
+    assert all(bool(x[2].any()) for x in tree_leaves(state.buffers))

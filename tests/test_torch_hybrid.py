@@ -24,7 +24,11 @@ tokens.
   (``tests/test_decode_consistency.py``);
 * cache and param layouts at full width on the meta device against
   ``jax.eval_shape`` of the reference's ``init_cache`` and ``init``;
-* the serve entry point on the CPU.
+* the serve entry point on the CPU;
+* three semi-synchronous rounds (the fused Eq.-8 route) of the reduced
+  config (one (rec, rec, attn) group) against the reference's step: the
+  RG-LRU scan's and the local attention's gradients and Hessian-vector
+  products (``test_torch_semi_sync.hold_semi_sync_rounds``).
 """
 import dataclasses
 
@@ -42,6 +46,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.models import build_model, hybrid
 from repro_torch.utils.tree import from_numpy_tree, tree_leaves, tree_paths
+from test_torch_semi_sync import hold_semi_sync_rounds
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 SCAN_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -271,3 +276,10 @@ def test_serve_entry_in_float32_matches_teacher_forcing():
         want = build_model(res.cfg).forward(res.params, toks)[0][:, 69:]
     rel = (res.logits - want).norm(dim=-1) / want.norm(dim=-1)
     assert float(rel.max()) < 1e-4
+
+
+def test_semi_sync_rounds_match_reference():
+    """The fused Eq.-8 route (β-SGD, no clipping)."""
+    _, state = hold_semi_sync_rounds("recurrentgemma_2b", 0.0)
+    # every leaf's gradient reached cohort 2's buffer row (refreshed last)
+    assert all(bool(x[2].any()) for x in tree_leaves(state.buffers))

@@ -16,7 +16,10 @@ above 1e-5 on the test's own inputs):
   decide the numbers, with and without a window: within 1e-3 of the
   reference, row by row;
 * full-width param and latent-cache layouts on ``meta``; serve on the
-  CPU.
+  CPU;
+* three semi-synchronous rounds (the fused Eq.-8 route) against the
+  reference's step, through MLA, the routing, the shared expert and the
+  aux loss (``test_torch_moe.hold_moe_semi_sync``).
 """
 import dataclasses
 
@@ -28,10 +31,10 @@ import torch
 
 from repro.models import layers as RL
 from repro_torch.models import layers as L
-from repro_torch.utils.tree import from_numpy_tree
+from repro_torch.utils.tree import from_numpy_tree, tree_leaves
 from test_torch_moe import (DEEPSEEK_V2_PARAMS, MIN_GAP, TOL, carried, cfgs,
-                            hold_full_width_layout, hold_prefill_and_decode,
-                            run_serve, tokens)
+                            hold_full_width_layout, hold_moe_semi_sync,
+                            hold_prefill_and_decode, run_serve, tokens)
 from test_torch_moe import route_gaps  # noqa: F401  (a fixture)
 
 
@@ -121,3 +124,10 @@ def test_deepseek_full_width_layout_matches_reference():
 def test_deepseek_serve_entry_runs_on_the_cpu(capsys):
     res = run_serve("deepseek_v2_236b", capsys)
     assert sorted(res.cache) == ["ckv", "kr", "pos"]
+
+
+def test_semi_sync_rounds_match_reference(route_gaps):
+    """The fused Eq.-8 route (β-SGD, no clipping)."""
+    _, state = hold_moe_semi_sync("deepseek_v2_236b", 0.0, route_gaps)
+    assert all(bool(x[2].any()) for x in tree_leaves(
+        state.buffers["layers"]))

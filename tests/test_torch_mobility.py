@@ -60,28 +60,37 @@ from repro_torch.models import build_model
 from repro_torch.utils.tree import from_numpy_tree, tree_leaves
 
 TOL = dict(rtol=1e-5, atol=1e-6)
-_REF_MODEL = ref_build_model(ref_get_config("mnist_dnn"))
+_REF_MODELS = {}
+
+
+def ref_model(arch="mnist_dnn"):
+    """The reference's model of one of the paper's configs, built once."""
+    if arch not in _REF_MODELS:
+        _REF_MODELS[arch] = ref_build_model(ref_get_config(arch))
+    return _REF_MODELS[arch]
 
 
 # ---------------------------------------------------------------------------
-# parity runner shared with the scenario and telemetry tests
+# parity runner shared with the scenario, telemetry, algorithm and example
+# tests
 # ---------------------------------------------------------------------------
 
-def ref_init(seed):
+def ref_init(seed, arch="mnist_dnn"):
     """The JAX driver's init for ``seed``, as numpy."""
     with jax.threefry_partitionable(False):
         init_key = jax.random.split(jax.random.PRNGKey(seed), 3)[0]
-        return jax.tree.map(np.asarray, jax.jit(_REF_MODEL.init)(init_key))
+        return jax.tree.map(np.asarray,
+                            jax.jit(ref_model(arch).init)(init_key))
 
 
-def port_model(init):
-    model = build_model(get_config("mnist_dnn"))
+def port_model(init, arch="mnist_dnn"):
+    model = build_model(get_config(arch))
     model.init = lambda gen: from_numpy_tree(init, "cpu")
     return model
 
 
 def cfg_pair(n, a, s, *, mob=None, scen=None, rng="legacy", batch=8,
-             **fl_kw):
+             arch="mnist_dnn", wireless=None, **fl_kw):
     """The same experiment in both packages' config classes."""
     out = []
     for exp, fl, mc, sc, wl, get in (
@@ -90,7 +99,7 @@ def cfg_pair(n, a, s, *, mob=None, scen=None, rng="legacy", batch=8,
             (ExperimentConfig, FLConfig, MobilityConfig, ScenarioConfig,
              WirelessConfig, get_config)):
         out.append(exp(
-            model=get("mnist_dnn"), wireless=wl(rng=rng),
+            model=get(arch), wireless=wl(rng=rng, **(wireless or {})),
             fl=fl(n_ues=n, participants_per_round=a, staleness_bound=s,
                   alpha=0.03, beta=0.07, inner_batch=batch,
                   outer_batch=batch, hessian_batch=batch, **fl_kw),
@@ -110,33 +119,39 @@ _REF_ENGINES = {}
 
 def run_ref(cfg, clients, *, bandwidth_policy="optimal", **run):
     """The reference run through its own adapter (so its final params can be
-    read), as ``run_simulation`` builds it.  Runs of one FL config share one
-    reference engine, so JAX compiles its payload functions once."""
+    read), as ``run_simulation`` builds it.  Runs of one model and FL config
+    share one reference engine, so JAX compiles its payload functions
+    once."""
+    model = ref_model(cfg.model.name)
     adapter_cls = RefMobileAdapter if cfg.mobility.enabled \
         else RefStaticAdapter
     adapter = adapter_cls(cfg, len(clients), seed=run.get("seed", 0),
                           bandwidth_policy=bandwidth_policy,
                           mode=run.get("mode", "semi"))
-    key = (cfg.fl, run.get("algorithm", "perfed"),
+    key = (cfg.model.name, cfg.fl, run.get("algorithm", "perfed"),
            run.pop("payload_mode", None) or "batched")
     if key not in _REF_ENGINES:
-        _REF_ENGINES[key] = RefEngine(_REF_MODEL, cfg.fl, key[1],
-                                      payload_mode=key[2])
+        _REF_ENGINES[key] = RefEngine(model, cfg.fl, key[2],
+                                      payload_mode=key[3])
     with jax.threefry_partitionable(False):
-        res = ref_run_event_loop(cfg, _REF_MODEL, clients, adapter,
+        res = ref_run_event_loop(cfg, model, clients, adapter,
                                  engine=_REF_ENGINES[key], **run)
     return res, jax.tree.map(np.asarray, adapter.protocol().params)
 
 
 def run_pair(n, a, s, *, client_seed=0, data_n=1200, data_seed=21,
-             cfg_kw=None, **run):
-    """(reference result, its final params, port result) on one config."""
+             cfg_kw=None, clients=None, **run):
+    """(reference result, its final params, port result) on one config;
+    ``clients`` (reference clients, port clients) replace the non-iid
+    MNIST split."""
     ref_cfg, port_cfg = cfg_pair(n, a, s, **(cfg_kw or {}))
-    ref_clients, port_clients = clients_pair(n, client_seed, data_n,
-                                             data_seed)
+    ref_clients, port_clients = clients or clients_pair(
+        n, client_seed, data_n, data_seed)
+    arch = port_cfg.model.name
     ref, ref_params = run_ref(ref_cfg, ref_clients, **run)
-    port = run_simulation(port_cfg, port_model(ref_init(run.get("seed", 0))),
-                          port_clients, device="cpu", **run)
+    port = run_simulation(port_cfg, port_model(
+        ref_init(run.get("seed", 0), arch), arch), port_clients,
+        device="cpu", **run)
     return ref, ref_params, port
 
 

@@ -20,7 +20,13 @@ flipped by rounding; the all-ties case checks the tie order itself.
   sliding-window case of ``tests/test_pallas_model_integration.py``;
 * prefill and a ring-wrapping decode against the reference;
 * full-width param and cache layouts on ``meta``; serve on the CPU;
-  ``moe_impl="ep"`` without a mesh is the gather MoE.
+  ``moe_impl="ep"`` without a mesh is the gather MoE;
+* three semi-synchronous rounds (masked mean + clipping + β-SGD) against
+  the reference's step (``test_torch_semi_sync.hold_semi_sync_rounds``):
+  gradients and Hessian-vector products through routing, the expert
+  gather and the Switch aux loss, whose value (and the cross entropy) at
+  each round's new params is compared too; each round's routings, in the
+  step and in that check, keep their top-k gap above 1e-5.
 """
 import dataclasses
 
@@ -38,7 +44,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
-from repro_torch.utils.tree import from_numpy_tree, tree_leaves, tree_paths
+from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
+                                    tree_paths)
+from test_torch_semi_sync import hold_semi_sync_rounds
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 MIN_GAP = 1e-5
@@ -306,7 +314,7 @@ def test_mixtral_serve_entry_runs_on_the_cpu(capsys):
     assert sorted(res.cache) == ["k", "pos", "v"]
 
 
-def test_expert_parallel_moe_raises():
+def test_expert_parallel_moe_without_a_mesh_is_gather():
     """``moe_impl="ep"`` builds; without a mesh it is the gather MoE, as
     in the reference (``tests/test_torch_spmd.py`` holds it on a mesh).
     What still raises is an expert count the model axis cannot split."""
@@ -319,3 +327,35 @@ def test_expert_parallel_moe_raises():
     want = L.moe_apply_gather(params, x, port_cfg)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def hold_moe_semi_sync(arch, grad_clip, gaps):
+    """``hold_semi_sync_rounds`` for an MoE ``arch``; after each round the
+    loss's cross entropy and aux at the new params on cohort 0's outer
+    batch against the reference's (the aux is part of the step's loss in
+    both), and every routing of the round with a top-k gap above 1e-5."""
+    jitted = {}
+
+    def on_round(k, ref, port, ref_state, state, batches):
+        loss = jitted.setdefault("loss", jax.jit(ref.loss))
+        outer = tree_map(lambda x: x[0], batches["outer"])
+        _, want = loss(ref_state.params, outer)
+        with torch.no_grad():
+            _, got = port.loss(state.params,
+                               tree_map(torch.from_numpy, outer))
+        assert float(got["aux"]) > 0
+        for name in ("ce", "aux"):
+            np.testing.assert_allclose(float(got[name]), float(want[name]),
+                                       rtol=1e-5, err_msg=f"round {k} {name}")
+        assert gaps and min(gaps) > MIN_GAP, (k, min(gaps))
+        gaps.clear()
+
+    return hold_semi_sync_rounds(arch, grad_clip, on_round=on_round)
+
+
+def test_semi_sync_rounds_match_reference(route_gaps):
+    """The clipped route (masked mean, clipping, β-SGD)."""
+    _, state = hold_moe_semi_sync("mixtral_8x22b", 1.0, route_gaps)
+    # the router's and every expert bank's gradients reached the buffers
+    assert all(bool(x[2].any()) for x in tree_leaves(
+        state.buffers["layers"]["moe"]))

@@ -23,7 +23,9 @@ the JAX reference.
   ``launch.train_e2e --device cpu --rounds 2`` run (``--server-opt adam``
   and ``--fused-agg`` too).
 """
+import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +50,8 @@ from repro_torch.launch import train, train_e2e
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
-                                    tree_norm, tree_sub, tree_unflatten)
+                                    tree_norm, tree_paths, tree_sub,
+                                    tree_unflatten)
 
 N_COHORTS = 3
 FL = dict(alpha=0.02, beta=0.1, staleness_bound=1, algorithm="perfed")
@@ -57,11 +60,12 @@ MASKS = [[1, 1, 0], [1, 0, 0], [0, 1, 0]]
 STALENESS = [[0, 0, 1], [0, 1, 2], [1, 0, 0]]
 
 
-def _pair(arch, grad_clip, opt_name):
-    """(reference model/cfg/opt, port model/cfg/opt) at f32, reduced."""
-    ref_m = dataclasses.replace(ref_get_config(arch).reduced(),
-                                dtype="float32")
-    port_m = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+def pair(arch, grad_clip, opt_name, **cfg_kw):
+    """(reference model/cfg/opt, port model/cfg/opt) at f32, reduced, with
+    ``cfg_kw`` replaced in both model configs."""
+    kw = {"dtype": "float32", **cfg_kw}
+    ref_m = dataclasses.replace(ref_get_config(arch).reduced(), **kw)
+    port_m = dataclasses.replace(get_config(arch).reduced(), **kw)
     ref_cfg = RefExperimentConfig(model=ref_m, fl=RefFLConfig(**FL),
                                   train=RefTrainConfig(grad_clip=grad_clip))
     cfg = ExperimentConfig(model=port_m, fl=FLConfig(**FL),
@@ -70,7 +74,7 @@ def _pair(arch, grad_clip, opt_name):
             (build_model(port_m), cfg, make_optimizer(opt_name)))
 
 
-def _carry_state(ref_state, opt):
+def carry_state(ref_state, opt):
     """The reference's state as numpy, carried into the port's."""
     params = from_numpy_tree(jax.tree.map(np.asarray, ref_state.params),
                              "cpu")
@@ -82,43 +86,90 @@ def _carry_state(ref_state, opt):
         step=torch.tensor(int(ref_state.step), dtype=torch.int32))
 
 
-def _lm_batches(rng, vocab, n=N_COHORTS, b=2, seq=32):
+def lm_batches(rng, vocab, n=N_COHORTS, b=2, seq=32, codebooks=0):
+    """Each cohort's {"inner", "outer", "hessian"} token batches, [n, b,
+    seq] (or [n, b, seq, K] with ``codebooks`` K: each codebook drawn on
+    its own)."""
+    tail = (codebooks,) if codebooks else ()
+
     def one():
-        t = rng.integers(0, vocab, size=(n, b, seq + 1)).astype(np.int32)
-        return {"tokens": t[..., :-1], "targets": t[..., 1:]}
+        t = rng.integers(0, vocab, size=(n, b, seq + 1) + tail) \
+            .astype(np.int32)
+        return {"tokens": t[:, :, :-1], "targets": t[:, :, 1:]}
     return {"inner": one(), "outer": one(), "hessian": one()}
 
 
-def _assert_params_close(port_params, ref_params, rel=1e-5):
-    for got, want in zip(tree_leaves(port_params),
-                         jax.tree.leaves(ref_params)):
+def assert_params_close(port_params, ref_params, rel=1e-5, what="params"):
+    for path, got, want in zip(tree_paths(port_params),
+                               tree_leaves(port_params),
+                               jax.tree.leaves(ref_params)):
         want = np.asarray(want)
         err = float(np.abs(got.detach().numpy() - want).max())
-        assert err <= rel * (1.0 + float(np.abs(want).max())), err
+        limit = rel * (1.0 + float(np.abs(want).max()))
+        assert err <= limit, f"{what} leaf {path}: error {err} > {limit}"
 
 
-@pytest.mark.parametrize("grad_clip", [0.0, 1.0], ids=["fused", "clipped"])
-@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_370m"])
-def test_sgd_rounds_match_reference(arch, grad_clip):
-    (ref, ref_cfg, ref_opt), (port, cfg, opt) = _pair(arch, grad_clip, "sgd")
+@contextlib.contextmanager
+def one_thread():
+    """The port's CPU ops on one thread within the block: under the
+    suite's parallel workers, each with a thread per core, these small
+    ops spend most of their time contending."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_step(arch, grad_clip, cfg_items):
+    """The reference's jitted step, built once per case and reused."""
+    (ref, ref_cfg, ref_opt), _ = pair(arch, grad_clip, "sgd",
+                                      **dict(cfg_items))
+    return ref, ref_opt, jax.jit(ref_semi_sync.make_semi_sync_step(
+        ref, ref_cfg, ref_opt, N_COHORTS))
+
+
+def hold_semi_sync_rounds(arch, grad_clip, *, rounds=len(MASKS),
+                          draw=None, edit_params=None, on_round=None,
+                          **cfg_kw):
+    """β-SGD semi-sync rounds of ``arch`` (reduced, f32) in both packages
+    from the reference's state, with ``MASKS`` and the same batches:
+    staleness, participants and max staleness bitwise every round, params
+    within 1e-5·(1 + max|p|) a leaf, ``grad_norm`` rtol 1e-5.
+
+    ``draw(rng, cfg)`` gives a round's numpy batches (``lm_batches`` by
+    default); ``edit_params(params)`` edits the reference's initial params
+    (numpy) before both packages take them; ``on_round(k, ref, port,
+    ref_state, state, batches)`` runs after each round's checks.  Returns
+    (reference state, port state)."""
+    ref, ref_opt, ref_step = _ref_step(arch, grad_clip,
+                                       tuple(sorted(cfg_kw.items())))
+    (_, ref_cfg, _), (port, cfg, opt) = pair(arch, grad_clip, "sgd",
+                                             **cfg_kw)
     assert semi_sync.uses_fused_eq8(opt, cfg) == (grad_clip == 0.0) == \
         ref_semi_sync.uses_fused_eq8(ref_opt, ref_cfg)
-    ref_step = jax.jit(ref_semi_sync.make_semi_sync_step(ref, ref_cfg,
-                                                         ref_opt, N_COHORTS))
     step = semi_sync.make_semi_sync_step(port, cfg, opt, N_COHORTS)
     with jax.threefry_partitionable(False):
         ref_state = ref_semi_sync.init_state(ref, jax.random.PRNGKey(0),
                                              ref_opt, N_COHORTS)
-    state = _carry_state(ref_state, opt)
+    if edit_params is not None:
+        ref_state = ref_state._replace(params=jax.tree.map(
+            jnp.asarray, edit_params(jax.tree.map(np.array,
+                                                  ref_state.params))))
+    state = carry_state(ref_state, opt)
     rng = np.random.default_rng(0)
+    draw = draw or (lambda rng, c: lm_batches(rng, c.vocab_size))
     before = stale_aggregate.LAUNCHES
-    for k, mask in enumerate(MASKS):
-        batches = _lm_batches(rng, ref.cfg.vocab_size)
+    for k, mask in enumerate(MASKS[:rounds]):
+        batches = draw(rng, ref.cfg)
         m = np.asarray(mask, np.float32)
         ref_state, ref_metrics = ref_step(ref_state, batches, jnp.asarray(m),
                                           jax.random.PRNGKey(k))
-        state, metrics = step(state, tree_map(torch.from_numpy, batches),
-                              torch.from_numpy(m))
+        with one_thread():
+            state, metrics = step(state, tree_map(torch.from_numpy, batches),
+                                  torch.from_numpy(m))
         np.testing.assert_array_equal(state.staleness.numpy(), STALENESS[k])
         np.testing.assert_array_equal(state.staleness.numpy(),
                                       np.asarray(ref_state.staleness))
@@ -130,12 +181,21 @@ def test_sgd_rounds_match_reference(arch, grad_clip):
         np.testing.assert_allclose(float(metrics["grad_norm"]),
                                    float(ref_metrics["grad_norm"]),
                                    rtol=1e-5)
-        _assert_params_close(state.params, ref_state.params)
+        assert_params_close(state.params, ref_state.params)
+        if on_round is not None:
+            on_round(k, ref, port, ref_state, state, batches)
     assert stale_aggregate.LAUNCHES == before   # the CPU takes the plain one
+    return ref_state, state
+
+
+@pytest.mark.parametrize("grad_clip", [0.0, 1.0], ids=["fused", "clipped"])
+@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_370m"])
+def test_sgd_rounds_match_reference(arch, grad_clip):
+    hold_semi_sync_rounds(arch, grad_clip)
 
 
 def test_server_adam_round_matches_reference():
-    (ref, ref_cfg, ref_opt), (port, cfg, opt) = _pair("mamba2_370m", 1.0,
+    (ref, ref_cfg, ref_opt), (port, cfg, opt) = pair("mamba2_370m", 1.0,
                                                        "adam")
     ref_step = jax.jit(ref_semi_sync.make_semi_sync_step(ref, ref_cfg,
                                                          ref_opt, N_COHORTS))
@@ -145,13 +205,13 @@ def test_server_adam_round_matches_reference():
                                              ref_opt, N_COHORTS)
     rng = np.random.default_rng(1)
     # round 0 (reference only) fills the buffers the Adam round aggregates
-    ref_state, _ = ref_step(ref_state, _lm_batches(rng, ref.cfg.vocab_size),
+    ref_state, _ = ref_step(ref_state, lm_batches(rng, ref.cfg.vocab_size),
                             jnp.asarray(MASKS[0], jnp.float32),
                             jax.random.PRNGKey(0))
-    state = _carry_state(ref_state, opt)
+    state = carry_state(ref_state, opt)
     state = state._replace(opt_state=from_numpy_tree(
         jax.tree.map(np.asarray, ref_state.opt_state), "cpu"))
-    batches = _lm_batches(rng, ref.cfg.vocab_size)
+    batches = lm_batches(rng, ref.cfg.vocab_size)
     m = np.asarray(MASKS[1], np.float32)
     ref_state, ref_metrics = ref_step(ref_state, batches, jnp.asarray(m),
                                       jax.random.PRNGKey(1))
@@ -161,7 +221,7 @@ def test_server_adam_round_matches_reference():
     assert fused_adam.LAUNCHES == before        # the CPU takes the plain one
     np.testing.assert_allclose(float(metrics["grad_norm"]),
                                float(ref_metrics["grad_norm"]), rtol=1e-5)
-    _assert_params_close(state.params, ref_state.params)
+    assert_params_close(state.params, ref_state.params)
     assert int(state.opt_state["t"]) == int(ref_state.opt_state["t"]) == 2
     for name in ("m", "v"):
         for got, want in zip(tree_leaves(state.opt_state[name]),
@@ -295,7 +355,7 @@ def test_train_step_matches_reference(perfed_step):
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(metrics[key]),
                                        float(ref_metrics[key]), rtol=1e-5)
-        _assert_params_close(state.params, ref_state.params)
+        assert_params_close(state.params, ref_state.params)
     assert int(state.step) == int(ref_state.step) == 2
 
 
@@ -315,7 +375,7 @@ def test_remat_is_bitwise_and_steps_aside_under_torch_func(arch,
         return checkpoint(*args, **kw)
 
     monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", counting)
-    batches = tree_map(lambda x: torch.from_numpy(x[0]), _lm_batches(
+    batches = tree_map(lambda x: torch.from_numpy(x[0]), lm_batches(
         np.random.default_rng(3), base.vocab_size, n=1))
     out = {}
     for remat in (True, False):

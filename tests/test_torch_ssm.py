@@ -15,7 +15,15 @@ reference.
   ``prefill`` logits and cache, then 5 ``decode_step``s, all at 2e-4;
 * the full-width layout on the meta device vs ``jax.eval_shape`` of the
   reference's init: 12 leaves, 419,825,152 parameters;
-* ``launch.serve`` serves reduced mamba2 on the CPU.
+* ``launch.serve`` serves reduced mamba2 on the CPU;
+* the Hessian-vector product (the semi-sync step's, reverse over reverse,
+  and ``torch.func``'s forward over reverse) where softplus's input lies
+  below -88, on reduced mamba2 (a head's ``dt_bias`` at -100) and reduced
+  recurrentgemma (a channel's ``lru_a`` at -100), against the reference's
+  at 1e-4 of its scale; with ``torch.logaddexp``'s softplus the reverse
+  over reverse HVP reads NaN there.  mamba2's ``--fused-agg`` rounds at
+  full width met this in bf16 once an unclipped β 0.5 step had moved the
+  params (``scripts/mamba2_fused_agg_overflow.py``).
 """
 import dataclasses
 
@@ -30,12 +38,16 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.ssd_scan import ssd_chunk_pallas
 from repro.models import build_model as ref_build_model
 from repro.models import ssm as ref_ssm
+from repro.core import perfed as ref_perfed
 from repro_torch.configs import get_config
+from repro_torch.core import perfed
 from repro_torch.kernels import ssd_scan
 from repro_torch.launch import serve
 from repro_torch.models import build_model
+from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.utils.tree import from_numpy_tree, tree_leaves, tree_paths
+from test_torch_semi_sync import one_thread
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 MAMBA2_370M_PARAMS = 419_825_152
@@ -219,3 +231,54 @@ def test_serve_entry_point_runs_reduced_mamba2_on_cpu():
     assert res.cache["state"].shape[0] == res.cfg.num_layers
     assert bool(((res.tokens >= 0) & (res.tokens < res.cfg.vocab_size))
                 .all())
+
+
+# the leaf whose softplus input is pushed below -88, and the depth
+# (mamba2 at one layer; recurrentgemma's reduced group)
+_SOFTPLUS_LOW = {"mamba2_370m": (("layers", "dt_bias"), 1),
+                 "recurrentgemma_2b": (("rec_layers", "lru_a"), 3)}
+
+
+@pytest.mark.parametrize("arch", sorted(_SOFTPLUS_LOW))
+def test_hvp_stays_finite_where_softplus_input_is_very_negative(arch,
+                                                                monkeypatch):
+    (group, leaf), layers = _SOFTPLUS_LOW[arch]
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                                  dtype="float32", num_layers=layers)
+    port_cfg = dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="float32", num_layers=layers)
+    ref = ref_build_model(ref_cfg)
+    with jax.threefry_partitionable(False):
+        params = jax.tree.map(np.array,
+                              jax.jit(ref.init)(jax.random.PRNGKey(0)))
+    params[group][leaf].reshape(-1)[0] = -100.0
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, ref_cfg.vocab_size, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    vec = jax.tree.map(lambda p: rng.normal(size=p.shape).astype(np.float32),
+                       params)
+    want = jax.tree.leaves(jax.jit(lambda p, b, v: ref_perfed.hvp(
+        ref.loss, p, b, v))(params, batch, vec))
+    port = build_model(port_cfg)
+
+    def loss(p, b):
+        return port.loss(p, b)[0]
+
+    tp, tv = from_numpy_tree(params, "cpu"), from_numpy_tree(vec, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with one_thread():
+        got_both = (perfed.hvp_autograd(loss, tp, tb, tv),
+                    perfed.hvp(loss, tp, tb, tv))
+    for got in got_both:
+        for path, g, w in zip(tree_paths(got), tree_leaves(got), want):
+            w = np.asarray(w)
+            assert np.isfinite(w).all()
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= 1e-4 * (1.0 + float(np.abs(w).max())), (path, err)
+
+    # torch.logaddexp's own backward: 0 · inf in the second derivative
+    monkeypatch.setattr(L, "softplus",
+                        lambda x: torch.logaddexp(x, torch.zeros_like(x)))
+    with one_thread():
+        bad = perfed.hvp_autograd(loss, tp, tb, tv)
+    assert not all(bool(torch.isfinite(x).all()) for x in tree_leaves(bad))

@@ -21,7 +21,13 @@ must fail the parity check with them and pass it with the gates at zero.
 * prefill and a ring-wrapping decode against the reference, and against
   the port's own full forward;
 * full-width param and cache layouts on ``meta`` (10,110,734,344
-  parameters); serve and ``launch.train --mode scale`` on the CPU.
+  parameters); serve and ``launch.train --mode scale`` on the CPU;
+* three semi-synchronous rounds (masked mean + clipping + β-SGD) of the
+  reduced config (one group: 2 self layers, one cross layer over the stub
+  image) against the reference's step, the gates drawn nonzero in the
+  reference's initial params and carried across; each round's buffers
+  (the fresh meta-gradients) held as the params are.  The planted RoPE
+  on the cross queries fails that hold in the first round.
 """
 import dataclasses
 import functools
@@ -40,9 +46,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve, train
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
-from repro_torch.utils.tree import from_numpy_tree, tree_map
+from repro_torch.utils.tree import from_numpy_tree, tree_leaves, tree_map
 from test_torch_moe import (TOL, carried, cfgs, hold_full_width_layout,
                             hold_prefill_and_decode, run_serve, tokens)
+from test_torch_semi_sync import assert_params_close, hold_semi_sync_rounds
 
 ARCH = "llama32_vision_11b"
 VISION_PARAMS = 10_110_734_344
@@ -264,3 +271,35 @@ def test_train_scale_runs_on_the_cpu(capsys):
     assert np.isfinite(float(metrics["loss"]))
     assert "cross_layers" in state.params
     assert "step    1 loss=" in capsys.readouterr().out
+
+
+def _draw_gates(params):
+    """The reference's initial params with the cross gates drawn nonzero."""
+    gate = params["cross_layers"]["gate_cross"]
+    assert not gate.any()
+    params["cross_layers"]["gate_cross"] = np.random.default_rng(
+        101).uniform(0.5, 1.5, size=gate.shape).astype(gate.dtype)
+    return params
+
+
+def _hold_buffers(k, ref, port, ref_state, state, batches):
+    assert (state.params["cross_layers"]["gate_cross"] != 0).all()
+    assert_params_close(state.buffers, ref_state.buffers, what="buffers")
+
+
+def test_semi_sync_rounds_match_reference():
+    """The clipped route (masked mean, clipping, β-SGD)."""
+    _, state = hold_semi_sync_rounds(ARCH, 1.0, edit_params=_draw_gates,
+                                     on_round=_hold_buffers)
+    # the cross layer's gradients (through tanh(gate)) reached the buffers
+    assert all(bool(x[2].any()) for x in tree_leaves(
+        state.buffers["cross_layers"]))
+
+
+def test_semi_sync_planted_cross_fault_fails_parity(monkeypatch):
+    """RoPE on the cross queries in the port's step only: with the gates
+    nonzero, round 0's meta-gradients leave the reference's."""
+    monkeypatch.setattr(L, "sdpa", _cross_fault("rope"))
+    with pytest.raises(AssertionError, match="buffers leaf cross_layers/"):
+        hold_semi_sync_rounds(ARCH, 1.0, rounds=1, edit_params=_draw_gates,
+                              on_round=_hold_buffers)
