@@ -2048,6 +2048,20 @@ def _zoo_masks(cohorts, a, rounds):
     return [row] * rounds
 
 
+def _zoo_hold_batches(torch, cfg, cohorts, rng):
+    """One round's {"inner", "outer", "hessian"} token batches [cohorts, 2,
+    32] (or [..., K] for K codebooks, each drawn on its own) from the
+    numpy generator ``rng``."""
+    k_cb = cfg.num_audio_codebooks
+
+    def one():
+        t = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(cohorts, 2, 33)
+            + ((k_cb,) if k_cb else ())).astype("int32"))
+        return {"tokens": t[:, :, :-1], "targets": t[:, :, 1:]}
+    return {"inner": one(), "outer": one(), "hessian": one()}
+
+
 def _holding_eq8(torch, agg, out):
     """Wrap Eq. 8's flat entry point so that each launch on the card is
     held against the plain version on its own inputs right after it runs,
@@ -2275,15 +2289,9 @@ def phase_zoo_vs_cpu(torch, agg, mods, *, device="cuda"):
             step=st_cpu.step.to(device))
         step = mods.semi_sync.make_semi_sync_step(model, exp, opt, cohorts)
         rng = np.random.default_rng(0)
-        k_cb = cfg.num_audio_codebooks
         before = agg.LAUNCHES
         for m in ZOO_HOLD_MASKS:
-            def one():
-                t = rng.integers(0, cfg.vocab_size, size=(cohorts, 2, 33)
-                                 + ((k_cb,) if k_cb else ())).astype(np.int32)
-                t = torch.from_numpy(t)
-                return {"tokens": t[:, :, :-1], "targets": t[:, :, 1:]}
-            batches = {"inner": one(), "outer": one(), "hessian": one()}
+            batches = _zoo_hold_batches(torch, cfg, cohorts, rng)
             mask = torch.tensor(m)
             st_cpu, _ = step(st_cpu, batches, mask)
             st_dev, _ = step(st_dev, mods.tree_map(lambda x: x.to(device),
@@ -4192,19 +4200,25 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
     def local(x):
         return x.to_local() if hasattr(x, "to_local") else x
 
-    # the first round's meta-gradients, finite, then the state after both
-    # rounds (the first round's unclipped β-SGD step moves mamba2's params
-    # far enough that round 2's meta-gradients go non-finite, in both
-    # routes alike: bit patterns compared, non-finite elements counted).
-    # Part of it was the port's: torch.logaddexp's second derivative read
-    # 0 · inf = NaN where softplus's input fell below -88 (28,490,129
-    # elements in 10 buffer leaves before ``layers.softplus``; at 8 layers
-    # on the CPU the JAX package stayed finite on the same inputs,
-    # ``scripts/mamba2_fused_agg_overflow.py``).  What is left at 48
-    # layers (one layer's in_proj, conv, A, D, dt and pre-norm gradients,
-    # and the embedding rows of the batch's tokens, in both refreshed
-    # cohorts: 11,070,144 elements in 8 leaves) is not held against the
-    # reference, which the CPU runs only to 8 layers at full width.
+    # both rounds' meta-gradients finite, and bitwise equal in both routes.
+    # Round 2's once were not: the first round's unclipped β-SGD step moves
+    # mamba2's params far enough that round 2's gated RMSNorm reads inputs
+    # up to ~1e19 (scripts/mamba2_hvp_bisect.py on the card; the JAX
+    # package on the card's own norm inputs: scripts/
+    # mamba2_fused_agg_overflow.py --norm-dump).  Two overflows were the
+    # port's, by reverse over reverse where the JAX package stays finite:
+    # torch.logaddexp's second derivative read 0 · inf below -88
+    # (``layers.softplus``), and rsqrt's backward (-0.5 · g · r³) in the
+    # gated norm (one cohort's whole fault; the norm now takes the JAX
+    # package's derivative rules, ``layers._RMSUnit``).  A third is the
+    # JAX package's own: the norm's output tangent multiplies x's tangent
+    # by 2x, past float32's range where both near 1.3e19, in its rules as
+    # in the port's (the other cohort, one row, then everything after it).
+    # tests/test_torch_ssm.py pins both: finite where the reference is,
+    # non-finite in the reference's elements where it is not.  With the
+    # reference's rules the port's own round 2 here is finite; a
+    # non-finite value would be a new fault of the port or the reference's
+    # own overflow, and the bisection script tells which.
     for path, x, y in zip(mods.tree_paths(st_plain.buffers), first_mesh,
                           first_plain):
         check(bool(torch.isfinite(y).all()) and same_bits(torch, x, y),
@@ -4223,8 +4237,12 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
                 nonfinite[f"{what}/{path}"] = bad
     check(same_bits(torch, local(st_mesh.staleness), st_plain.staleness),
           "spmd: staleness differs")
-    check(not any(k.startswith("params/") for k in nonfinite),
-          f"spmd: non-finite params {nonfinite}")
+    check(not nonfinite, f"spmd: non-finite elements after round 2: "
+          f"{sum(nonfinite.values())} in {nonfinite} (scripts/"
+          f"mamba2_hvp_bisect.py names the layer and the piece; where the "
+          f"JAX package's rules overflow as well, tests/test_torch_ssm.py::"
+          f"test_rmsnorm_hvp_overflows_where_the_reference_does, that is "
+          f"the reference's behaviour)")
     moved = any(not torch.equal(local(x).cpu(), y) for x, y in zip(
         mods.tree_leaves(st_mesh.params), p0))
     check(moved, "spmd: two rounds left the params where they started")
@@ -4248,10 +4266,7 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
           f"s/round {', '.join(f'{s:.3f}' for s in mesh_s)}; plain step "
           f"{', '.join(f'{s:.3f}' for s in plain_s)}; DTensor overhead "
           f"{', '.join(f'{o:+.1%}' for o in overhead)}; params, buffers and "
-          f"staleness bitwise equal (round 0's meta-gradients finite; after "
-          f"round 1, bit patterns, non-finite elements in both: "
-          f"{sum(nonfinite.values())} in {len(nonfinite)} leaves: "
-          f"{nonfinite}); "
+          f"staleness bitwise equal and finite after both rounds; "
           f"Eq.-8 launches {launches} on the mesh "
           f"({plain_launches} unsharded); peak memory above each route's "
           f"start: mesh {peak:.2f} GiB, plain {peak_plain:.2f} GiB [{smi}]")
@@ -4444,6 +4459,140 @@ def phase_spmd_mixtral(torch, fa, mods, mesh, smi, *, reduce=False,
                 call_rel=call_rel)
 
 
+# slice 14: each LM family's mesh code on the card, at the reduced f32
+# config its CPU parity test takes (the gloo test splits it over 8 ranks)
+SPMD_ZOO = ("mamba2_370m",) + tuple(a for a, _ in ZOO_HOLD_ARCHS)
+# families whose HVPs on the mesh route sum the same values in another
+# order than the plain step's: their inner and outer gradients are bitwise
+# the plain step's, their params and buffers after the phase's 2 rounds
+# within a few 1e-7 of 1 + max|x|, and they are held within
+# ``ZOO_HOLD_RTOL`` (the rest bitwise).  scripts/spmd_zoo_divergence.py
+# finds the first op that parts on the CPU (world-1 gloo mesh, the phase's
+# state and first batch): for Mixtral and DeepSeek-V2, whose mesh route
+# runs ``moe_apply_ep`` where the plain step runs ``moe_apply_gather``, an
+# ``add`` in the HVP's second backward that accumulates the token
+# gradient's contributions (the router's ``MmBackward0``, the expert
+# shards' Partial over ``model``) in another order; for MusicGen, the
+# final norm's scale gradient (``MulBackward0`` of y · scale, a sum over
+# batch and sequence) summed over a cotangent that ``_unembed_shards``
+# hands back contiguous (``sharding._FromLocal``) where the plain einsum's
+# backward leaves it strided.
+SPMD_ZOO_REORDERED = ("mixtral_8x22b", "deepseek_v2_236b", "musicgen_large")
+
+
+def _spmd_zoo_rounds(torch, mods, step, state, draws, device, mesh=None,
+                     rules=None):
+    for batches, m in zip(draws, ZOO_HOLD_MASKS):
+        batches = mods.tree_map(lambda x: x.to(device), batches)
+        mask = torch.tensor(m, device=device)
+        with (mods.sharding.use_mesh(mesh, rules) if mesh is not None
+              else contextlib.nullcontext()):
+            state, _ = step(state, batches, mask)
+    return state
+
+
+def phase_spmd_zoo(torch, agg, mods, mesh, smi, *, device="cuda"):
+    """``SPMD_ZOO``'s families at their reduced f32 configs (the cross
+    gates drawn nonzero; MoE with ``moe_impl="ep"``): 2 fused Eq.-8
+    rounds (``ZOO_HOLD_MASKS``) with the state as DTensors placed by
+    ``state_shardings`` on the mesh, then 2 rounds of the plain step from
+    the same state and batches: params, buffers and staleness bitwise
+    equal (``SPMD_ZOO_REORDERED``'s params and buffers within
+    ``ZOO_HOLD_RTOL``); Eq. 8 launched once a round on the mesh, the last
+    launch held against its plain version (a planted fault rejected)."""
+    import numpy as np
+    out = {}
+    cohorts = len(ZOO_HOLD_MASKS[0])
+    for arch in SPMD_ZOO:
+        t0 = time.perf_counter()
+        cfg, exp = _hold_cfgs(mods, arch, 0.0)
+        model = mods.build_model(cfg, moe_impl="ep" if cfg.moe else
+                                 "gather")
+        sgd = mods.make_optimizer("sgd")
+        check(mods.semi_sync.uses_fused_eq8(sgd, exp),
+              f"spmd {arch}: not the fused Eq.-8 path")
+        rules = mods.specs.arch_rules(cfg, mesh)
+        plain = mods.semi_sync.init_state(
+            model, torch.Generator(device=device).manual_seed(0), sgd,
+            cohorts)
+        _gate_draw(torch, plain.params, device)
+        with mods.sharding.use_mesh(mesh, rules):
+            st_mesh = mods.sharding.distribute(
+                plain._replace(**{f: mods.tree_map(torch.clone,
+                                                   getattr(plain, f))
+                                  for f in ("params", "buffers",
+                                            "staleness", "step")}),
+                mods.specs.state_shardings(
+                    plain, mods.sharding.param_placements(
+                        plain.params, mesh, rules), mesh), mesh)
+        rng = np.random.default_rng(0)
+        draws = [_zoo_hold_batches(torch, cfg, cohorts, rng)
+                 for _ in ZOO_HOLD_MASKS]
+        step = mods.semi_sync.make_semi_sync_step(model, exp, sgd, cohorts)
+        last, orig = _last_eq8(agg)
+        last["armed"] = True
+        try:
+            before = agg.LAUNCHES
+            st_mesh = _spmd_zoo_rounds(torch, mods, step, st_mesh, draws,
+                                       device, mesh, rules)
+            launches = agg.LAUNCHES - before
+        finally:
+            agg.stale_aggregate_flat = orig
+        before = agg.LAUNCHES
+        st_plain = _spmd_zoo_rounds(torch, mods, step, plain, draws, device)
+        plain_launches = agg.LAUNCHES - before
+        leaves, bitwise, worst = 0, 0, 0.0
+        for what in ("params", "buffers"):
+            a, b = getattr(st_mesh, what), getattr(st_plain, what)
+            for path, x, y in zip(mods.tree_paths(b), mods.tree_leaves(a),
+                                  mods.tree_leaves(b)):
+                x = x.to_local()
+                leaves += 1
+                if same_bits(torch, x, y):
+                    bitwise += 1
+                    err = 0.0
+                else:
+                    err = float((x - y).abs().max()) / (
+                        1.0 + float(y.abs().max()))
+                worst = max(worst, err)
+                check(bool(torch.isfinite(y).all()) and (
+                    err == 0.0 or (arch in SPMD_ZOO_REORDERED
+                                   and err <= ZOO_HOLD_RTOL)),
+                      f"spmd {arch}: {what} {path} of the mesh route differ "
+                      f"from the plain step's ({err:.3e} of 1 + max|x|), "
+                      f"or are not finite")
+        check(same_bits(torch, st_mesh.staleness.to_local(),
+                        st_plain.staleness), f"spmd {arch}: staleness differs")
+        check(any(bool(x.any()) for x in mods.tree_leaves(st_plain.buffers)),
+              f"spmd {arch}: the buffers stayed zero")
+        row = None
+        if device == "cuda":
+            check(launches == len(ZOO_HOLD_MASKS) == plain_launches,
+                  f"spmd {arch}: Eq. 8 launched {launches} times on the mesh "
+                  f"and {plain_launches} unsharded in {len(ZOO_HOLD_MASKS)} "
+                  f"rounds")
+            row = hold_eq8_spmd(torch, agg, last["args"])
+        out[arch] = dict(launches=launches, plain_launches=plain_launches,
+                         leaves=leaves, bitwise=bitwise, worst=worst, row=row,
+                         seconds=time.perf_counter() - t0)
+        del st_mesh, st_plain, plain, last
+    print(f"[spmd zoo] reduced f32, 2 fused Eq.-8 rounds (masks "
+          f"{list(ZOO_HOLD_MASKS)}) with DTensor state on the mesh "
+          f"{dict(mods.sharding.mesh_shape(mesh))} against the plain step: "
+          f"staleness bitwise, params and buffers finite and bitwise "
+          f"(within {ZOO_HOLD_RTOL:.0e} of 1 + max|x| for "
+          f"{', '.join(SPMD_ZOO_REORDERED)}); "
+          + "; ".join(
+              f"{arch} {r['bitwise']} of {r['leaves']} leaves bitwise, worst "
+              f"{r['worst']:.3e}, {r['seconds']:.1f} s, Eq.-8 "
+              f"launches {r['launches']}" + (
+                  f", last N={r['row']['n']} C={r['row']['c']} err "
+                  f"{r['row']['max_abs_err']:.3e}, fault "
+                  f"{r['row']['fault_err']:.3e} rejected" if r["row"] else "")
+              for arch, r in out.items()) + f" [{smi}]")
+    return out
+
+
 def phase_spmd(torch, agg, fa, adam, mods, smi):
     """Slice 10 on the card: the dry run's production-mesh cases
     (``DRYRUN_CASES``) start in their own processes; meanwhile, on a world-1
@@ -4466,6 +4615,9 @@ def phase_spmd(torch, agg, fa, adam, mods, smi):
                           mods, mesh, smi, adam=adam)
             mixtral = timed("spmd: mixtral ep", phase_spmd_mixtral, torch,
                             fa, mods, mesh, smi)
+            torch.cuda.empty_cache()
+            zoo = timed("spmd: the zoo's mesh rounds", phase_spmd_zoo,
+                        torch, agg, mods, mesh, smi)
         finally:
             dist.destroy_process_group()
         dry = timed("spmd: dry run (wait)", finish_dryrun, procs, out_dir,
@@ -4476,7 +4628,7 @@ def phase_spmd(torch, agg, fa, adam, mods, smi):
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    return dict(mamba=mamba, mixtral=mixtral, dryrun=dry)
+    return dict(mamba=mamba, mixtral=mixtral, zoo=zoo, dryrun=dry)
 
 
 def import_port():
@@ -4666,6 +4818,16 @@ def main():
              "launches": zoo_eq8,
              "holds": {arch: r["eq8"] for arch, r in zoo_train.items()
                        if r["eq8"]}},
+         "spmd_zoo": {
+             "path": "2 fused semi-sync rounds of each LM family's reduced "
+                     "f32 config with DTensor state on a world-1 NCCL mesh, "
+                     "one launch a round on the local shard, against the "
+                     "plain step",
+             "launches": sum(r["launches"] for r in spmd["zoo"].values()),
+             "plain_step_launches": sum(r["plain_launches"]
+                                        for r in spmd["zoo"].values()),
+             "last_launch_held": {arch: r["row"] for arch, r
+                                  in spmd["zoo"].items()}},
          "zoo_vs_cpu": {
              "path": "2 fused semi-sync rounds of the reduced f32 "
                      "recurrentgemma, deepseek-v2 and musicgen, against "

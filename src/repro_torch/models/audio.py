@@ -16,7 +16,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Params, TransformerLM
@@ -64,8 +66,10 @@ class AudioLM(TransformerLM):
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         # [B, L, d] -> [B, L, K, V]
-        return torch.einsum("bld,kdv->blkv", x,
-                            params["embedding"]["lm_head"])
+        head = params["embedding"]["lm_head"]
+        if isinstance(x, DTensor):
+            return _unembed_shards(x, head)
+        return torch.einsum("bld,kdv->blkv", x, head)
 
     def loss(self, params, batch, rng=None):
         logits, _, aux = self.forward(params, batch["tokens"])   # [B,L,K,V]
@@ -76,3 +80,24 @@ class AudioLM(TransformerLM):
                                                      dtype=torch.float32)
         ce = L.cross_entropy(logits, targets, mask)
         return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _unembed_shards(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The K heads on DTensors, each rank on its own batch rows and vocab
+    shard (``sharding.map_local``): DTensor's own einsum of a batch-split
+    x with a [K, d, V] head split on d and V reshapes a local tensor it
+    cannot view.  x's gradient sums over the vocab shards, the head's over
+    the batch shards."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    m = mesh.shape[names.index("model")] if "model" in names else 1
+    batch = tuple(n for n in ("pod", "data") if n in names) or None
+    vocab = "model" if m > 1 and head.shape[-1] % m == 0 else None
+    xp = sharding.spec_placements((batch, None, None), mesh)
+    hp = sharding.spec_placements((None, None, vocab), mesh)
+    return sharding.map_local(
+        lambda a, w: torch.einsum("bld,kdv->blkv", a, w), (x, head),
+        (xp, hp), (sharding.spec_placements((batch, None, None, vocab),
+                                            mesh),),
+        (sharding.summed(xp, (vocab,), mesh),
+         sharding.summed(hp, batch or (), mesh)))

@@ -144,11 +144,113 @@ def rmsnorm_init(d: int, dtype, *, device="cpu", lead=()) -> Params:
     return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
 
 
+def _rms_stats(a: torch.Tensor, eps: float):
+    """ve = mean(a²) + eps and r = rsqrt(ve) over the last dim."""
+    ve = torch.mean(torch.square(a), dim=-1, keepdim=True) + eps
+    return ve, torch.rsqrt(ve)
+
+
+def _rms_tangent(a, da, r, c):
+    """The JAX package's tangents of (mean(a²), r, a · r) along ``da``:
+    ``jax.lax.rsqrt``'s JVP rule multiplies a tangent of ve by the primal
+    c = -0.5 · (r / ve)."""
+    dve = torch.mean(da * (2.0 * a), dim=-1, keepdim=True)
+    dr = dve * c
+    return dve, dr, da * r + a * dr
+
+
+def _rms_vjp_tangent(a, g, ve, r, da, dg):
+    """The JAX package's tangent of ``_RMSUnitVJP`` along (da, dg), op for
+    op as ``jax.jvp`` differentiates the VJP, and the tangent of a · r
+    along da.  dg None: zero."""
+    n = a.shape[-1]
+    c = -0.5 * (r / ve)
+    dve, dr, dm = _rms_tangent(a, da, r, c)
+    # d(r / ve) = dr / ve - dve · r · ve^-2
+    dc = -0.5 * (dr / ve + (-dve * r) * (1.0 / (ve * ve)))
+    s = torch.sum(a * g, dim=-1, keepdim=True)
+    ds = torch.sum(da * g if dg is None else da * g + a * dg, dim=-1,
+                   keepdim=True)
+    dgr = g * dr if dg is None else dg * r + g * dr
+    return dgr + (((ds * c + s * dc) / n) * (2.0 * a)
+                  + ((s * c) / n) * (2.0 * da)), dm
+
+
+class _RMSUnitVJP(torch.autograd.Function):
+    """``_RMSUnit``'s VJP as ``jax.vjp`` takes it, g·r + (sum(a·g)·c/n)·2a
+    (ve and r: ``_RMSUnit``'s, functions of a), with the JAX package's
+    derivatives: its JVP is ``jax.jvp``'s of the same ops, and its
+    backward gives the same two pieces, the one in a by symmetry (the VJP
+    is the gradient of <g, a·r> in a, so its Jacobian in a is a
+    Hessian)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, g, ve, r):
+        s = torch.sum(a * g, dim=-1, keepdim=True)
+        return g * r + ((s * (-0.5 * (r / ve))) / a.shape[-1]) * (2.0 * a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, w):
+        a, g, ve, r = ctx.saved_tensors
+        hw, jw = _rms_vjp_tangent(a, g, ve, r, w, None)
+        return hw, jw, None, None
+
+    @staticmethod
+    def jvp(ctx, da, dg, _dve, _dr):
+        a, g, ve, r = ctx.saved_tensors
+        return _rms_vjp_tangent(a, g, ve, r, da, dg)[0]
+
+
+class _RMSUnit(torch.autograd.Function):
+    """(a · r, ve, r), r = rsqrt(ve), ve = mean(a²) + eps over the last dim
+    (ve and r not differentiable: their derivatives are a · r's), with the
+    JAX package's first and second derivatives op for op.  Torch's rsqrt
+    backward is -0.5 · g · r³: by reverse over reverse it multiplies the
+    second-order cotangent (~|a|·|v|) by g (~|a|) before r² (~1/|a|²) and
+    overflows float32 where ``jax.jvp`` through ``jax.grad`` stays finite;
+    with the JAX package's rules the port overflows where the JAX package
+    does."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, eps):
+        ve, r = _rms_stats(a, eps)
+        return a * r, ve, r
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, ctx.eps = inputs
+        _, ve, r = output
+        ctx.mark_non_differentiable(ve, r)
+        ctx.save_for_backward(a, ve, r)
+        ctx.save_for_forward(a)
+
+    @staticmethod
+    def backward(ctx, g, _gve, _gr):
+        a, ve, r = ctx.saved_tensors
+        return _RMSUnitVJP.apply(a, g, ve, r), None
+
+    @staticmethod
+    def jvp(ctx, da, _):
+        a, = ctx.saved_tensors
+        ve, r = _rms_stats(a, ctx.eps)
+        return _rms_tangent(a, da, r, -0.5 * (r / ve))[2], None, None
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
+    """The JAX package's ``rmsnorm``: x · rsqrt(mean(x²) + eps) · scale in
+    float32, differentiated by its rules (``_RMSUnit``) wherever
+    gradients are taken."""
     xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
+    y = (_RMSUnit.apply(xf, eps)[0] if torch.is_grad_enabled()
+         else xf * _rms_stats(xf, eps)[1])
     return (y * params["scale"].float()).to(x.dtype)
 
 

@@ -62,7 +62,6 @@ def _scan_shards(scan, x, dt, a, b, c, chunk):
     (``sharding.map_local``): the scan is independent per (batch row,
     head).  b and c are shared across heads and ``a`` across batch rows,
     so their gradients sum over the ranks that split the other dim."""
-    from torch.distributed.tensor import Partial
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     m = mesh.shape[names.index("model")] if "model" in names else 1
@@ -72,17 +71,13 @@ def _scan_shards(scan, x, dt, a, b, c, chunk):
     def pl(*spec):
         return sharding.spec_placements(spec, mesh)
 
-    def summed(placements, axes):
-        return tuple(Partial() if n in axes and p.is_replicate() else p
-                     for n, p in zip(names, placements))
-
     xp, dtp, ap, bcp = (pl(batch, None, heads, None), pl(batch, None, heads),
                         pl(heads), pl(batch, None, None))
+    bc_grad = sharding.summed(bcp, (heads,), mesh)
     return sharding.map_local(
         lambda *t: scan(*t, chunk), (x, dt, a, b, c),
         (xp, dtp, ap, bcp, bcp), (xp, pl(batch, heads, None, None)),
-        (xp, dtp, summed(ap, batch or ()), summed(bcp, (heads,)),
-         summed(bcp, (heads,))))
+        (xp, dtp, sharding.summed(ap, batch or (), mesh), bc_grad, bc_grad))
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -334,6 +334,15 @@ def map_local(fn, args, in_placements, out_placements, grad_placements=None):
     return placed[0] if single else tuple(placed)
 
 
+def summed(placements, axes, mesh) -> tuple:
+    """``placements`` with Partial on the mesh dims named in ``axes`` that
+    they replicate: the layout of a ``map_local`` input's gradient when
+    the ranks along those dims each computed a piece of it."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if n in axes and p.is_replicate() else p
+                 for n, p in zip(mesh.mesh_dim_names, placements))
+
+
 # ---------------------------------------------------------------------------
 # Parameter spec resolution by tree path
 # ---------------------------------------------------------------------------

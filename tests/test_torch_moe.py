@@ -47,6 +47,7 @@ from repro_torch.models import layers as L
 from repro_torch.utils.tree import (from_numpy_tree, tree_leaves, tree_map,
                                     tree_paths)
 from test_torch_semi_sync import hold_semi_sync_rounds
+from test_torch_spmd_worker import top_gap
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 MIN_GAP = 1e-5
@@ -77,16 +78,6 @@ def carried(arch, seed=0, **kw):
 def tokens(shape, vocab, seed):
     return np.random.default_rng(seed).integers(0, vocab, size=shape) \
         .astype(np.int32)
-
-
-def top_gap(router, xf, k):
-    """Smallest gap between a token's k-th and (k+1)-th router
-    probability (float64, from the same f32 inputs)."""
-    logits = np.asarray(xf, np.float64) @ np.asarray(router, np.float64)
-    full = np.exp(logits - logits.max(-1, keepdims=True))
-    full /= full.sum(-1, keepdims=True)
-    srt = -np.sort(-full, axis=-1)
-    return float((srt[:, k - 1] - srt[:, k]).min())
 
 
 @pytest.fixture

@@ -23,7 +23,17 @@ reference.
   at 1e-4 of its scale; with ``torch.logaddexp``'s softplus the reverse
   over reverse HVP reads NaN there.  mamba2's ``--fused-agg`` rounds at
   full width met this in bf16 once an unclipped β 0.5 step had moved the
-  params (``scripts/mamba2_fused_agg_overflow.py``).
+  params (``scripts/mamba2_fused_agg_overflow.py``);
+* the HVP through ``layers.rmsnorm`` where its input is large, which
+  takes the JAX package's derivative rules (``layers._RMSUnit``): at the
+  op level against the reference's in value and in its non-finite
+  elements, both where the reference stays finite and torch's own rsqrt
+  derivatives overflow by reverse over reverse, and where the reference
+  overflows too; and on reduced mamba2 with the gated norm's input at
+  ~1e12 and ~1e15, against the reference's in every leaf.  mamba2's
+  ``--fused-agg`` round 2 at 48 layers met both regimes on the card
+  (``scripts/mamba2_hvp_bisect.py``; the JAX package on the card's own
+  inputs: ``scripts/mamba2_fused_agg_overflow.py --norm-dump``).
 """
 import dataclasses
 
@@ -37,6 +47,7 @@ from repro.configs import get_config as ref_get_config
 from repro.kernels import ops as ref_ops
 from repro.kernels.ssd_scan import ssd_chunk_pallas
 from repro.models import build_model as ref_build_model
+from repro.models import layers as RL
 from repro.models import ssm as ref_ssm
 from repro.core import perfed as ref_perfed
 from repro_torch.configs import get_config
@@ -279,6 +290,197 @@ def test_hvp_stays_finite_where_softplus_input_is_very_negative(arch,
     # torch.logaddexp's own backward: 0 · inf in the second derivative
     monkeypatch.setattr(L, "softplus",
                         lambda x: torch.logaddexp(x, torch.zeros_like(x)))
+    with one_thread():
+        bad = perfed.hvp_autograd(loss, tp, tb, tv)
+    assert not all(bool(torch.isfinite(x).all()) for x in tree_leaves(bad))
+
+
+def _rmsnorm_plain(params, x, eps=1e-6):
+    """``layers.rmsnorm``'s expression with torch's own derivatives (rsqrt's
+    backward is -0.5 · g · r³): the port's norm before it took the JAX
+    package's rules."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
+
+
+def _norm_hvp_pair(t):
+    """The gated norm's own HVP at the float32 arrays ``t`` (x, s, g, dx, ds,
+    dg): the JVP of its VJP (x, s) -> (gx, gs) along (dx, ds, dg), by the
+    reference (``jax.jvp`` of ``jax.vjp``) and by the port's ``rmsnorm``
+    two ways (reverse over reverse, the semi-sync step's route, and
+    ``torch.func``'s forward over reverse); and by the port's expression
+    with torch's own derivatives, reverse over reverse."""
+    def ref_vjp(x, s, g):
+        return jax.vjp(lambda x, s: RL.rmsnorm({"scale": s}, x), x, s)[1](g)
+
+    want = [np.asarray(h) for h in jax.jit(lambda a: jax.jvp(
+        ref_vjp, (a["x"], a["s"], a["g"]),
+        (a["dx"], a["ds"], a["dg"]))[1])(t)]
+    tt = {k: torch.from_numpy(v) for k, v in t.items()}
+
+    def rr(norm):
+        x = tt["x"].clone().requires_grad_(True)
+        s = tt["s"].clone().requires_grad_(True)
+        out = norm({"scale": s}, x)
+        gx, gs = torch.autograd.grad(out, (x, s), tt["g"], create_graph=True)
+        return [h.numpy() for h in torch.autograd.grad(
+            (gx, gs, out), (x, s), (tt["dx"], tt["ds"], tt["dg"]))]
+
+    def vjp(x, s, g):
+        return torch.func.vjp(lambda x, s: L.rmsnorm({"scale": s}, x), x,
+                              s)[1](g)
+    fr = [h.numpy() for h in torch.func.jvp(
+        vjp, (tt["x"], tt["s"], tt["g"]), (tt["dx"], tt["ds"], tt["dg"]))[1]]
+    return want, {"reverse_over_reverse": rr(L.rmsnorm),
+                  "forward_over_reverse": fr}, rr(_rmsnorm_plain)
+
+
+def _draw_norm_case(rng, rows, x_scale, dx_scale, d=2048):
+    """mamba2-370m's gated norm (d_inner 2,048): x and its tangent at the
+    given magnitudes, unit cotangents and a unit direction on the scale."""
+    t = {"x": rng.standard_normal((rows, d)) * x_scale,
+         "s": rng.uniform(0.5, 1.5, d),
+         "g": rng.standard_normal((rows, d)),
+         "dx": rng.standard_normal((rows, d)) * dx_scale,
+         "ds": rng.standard_normal(d),
+         "dg": rng.standard_normal((rows, d))}
+    return {k: v.astype(np.float32) for k, v in t.items()}
+
+
+def test_rmsnorm_hvp_stays_finite_where_rsqrt_backward_overflows():
+    """The gated norm at |x| ~ 1e12 and a tangent ~ 1e15 on x: by reverse
+    over reverse through rsqrt's own backward the second-order cotangent
+    (~|x|·|dx|) meets g (~|x|) before r² and the HVP overflows float32,
+    where the reference's ``jax.jvp`` through ``jax.grad`` stays finite.
+    The port's HVP, both routes, finite and within 1e-5 of the reference's
+    scale in both components (read: 3.8e-6 on x).  The reference's x
+    component is itself ~1e-2 off the same function in float64 here (its
+    forward-mode rsqrt rule meets ve^-2 ~ 1e-48, which reads 0), and the
+    port's follows it, not float64: the port's derivatives are the
+    reference's rules op for op."""
+    want, got, plain = _norm_hvp_pair(
+        _draw_norm_case(np.random.default_rng(5), 8, 1e12, 1e15))
+    for name, h in got.items():
+        for comp, a, w in zip(("x", "scale"), h, want):
+            assert np.isfinite(w).all() and np.isfinite(a).all(), (name, comp)
+            scale = float(np.abs(w).max())
+            err = float(np.abs(a.astype(np.float64) - w).max())
+            assert err <= 1e-5 * scale, (name, comp, err / scale)
+    # rsqrt's own backward: the product overflows
+    assert not np.isfinite(plain[0]).all()
+
+
+# (x magnitude, its tangent's magnitude, the reference finite?): where
+# torch's own rsqrt derivatives overflow by reverse over reverse and the
+# reference does not, and where the reference overflows too (from x ~ 3e18
+# on with a tangent ~ 1e18: the tangent of mean(x²) overflows, in some
+# rows or all); at 2.5e19 the forward's mean square itself overflows, the
+# norm reads 0 and so does the reference's HVP
+NORM_REGIMES = {"x1e15_dx1e10": (1e15, 1e10, True),
+                "x1e17_dx1e17": (1e17, 1e17, True),
+                "x3e18_dx1e18": (10 ** 18.5, 1e18, False),
+                "x1e19_dx1e19": (1e19, 1e19, False),
+                "x2.5e19_dx1e16": (10 ** 19.4, 1e16, True)}
+
+
+@pytest.mark.parametrize("regime", sorted(NORM_REGIMES))
+def test_rmsnorm_hvp_overflows_where_the_reference_does(regime):
+    """The gated norm's own HVP (8 rows) in each of ``NORM_REGIMES``: the
+    port's, by both routes, non-finite in exactly the reference's elements
+    of both components, and within 1e-5 of the reference's scale on the
+    rest.  Where the reference stays finite, torch's own rsqrt derivatives
+    overflow by reverse over reverse (the port-only fault the JAX
+    package's rules repair); where it does not, the port overflows with
+    it (the reference's behaviour, kept)."""
+    x_scale, dx_scale, ref_finite = NORM_REGIMES[regime]
+    want, got, plain = _norm_hvp_pair(
+        _draw_norm_case(np.random.default_rng(7), 8, x_scale, dx_scale))
+    assert all(np.isfinite(w).all() for w in want) == ref_finite
+    if ref_finite:
+        assert not np.isfinite(plain[0]).all()
+    for name, h in got.items():
+        for comp, a, w in zip(("x", "scale"), h, want):
+            assert np.array_equal(np.isfinite(a), np.isfinite(w)), (name, comp)
+            both = np.isfinite(w)
+            if both.any():
+                scale = float(np.abs(w[both]).max())
+                err = float(np.abs(a[both].astype(np.float64)
+                                   - w[both]).max())
+                assert err <= 1e-5 * scale, (name, comp, err, scale)
+
+
+def test_mamba2_hvp_stays_finite_where_the_gated_norm_input_is_large(
+        monkeypatch):
+    """Reduced mamba2 (one layer, f32) with ``D_skip`` at 1e15 times the
+    reference's init, so that the gated norm's input reads ~1e15: the
+    reference's HVP is finite, the port's by both routes is within 1e-5
+    of it in every leaf (read: 1.1e-6), and with rsqrt's own derivatives
+    the reverse over reverse HVP is not finite.  From ~1e13 on the
+    norm's c = -0.5·r/ve is a float32 subnormal (below 1.2e-38), which
+    XLA's CPU backend flushes to zero and torch on the CPU does not: the
+    two packages part there by ~1e-2 of the scale (upstream of the gated
+    norm, the first gradient already), and agree once torch flushes
+    subnormals too, as it does for this test."""
+    _mamba2_large_norm_case(monkeypatch, 1e15, 1.0, flush=True)
+
+
+def test_mamba2_hvp_matches_reference_where_the_norm_factor_is_normal(
+        monkeypatch):
+    """As above at ``D_skip`` 1e12 times the reference's init (c normal,
+    no flushing) and the direction 2^20 times larger, where rsqrt's own
+    derivatives still overflow: every leaf within 1e-5 (read: 1.3e-6)."""
+    _mamba2_large_norm_case(monkeypatch, 1e12, 2.0 ** 20, flush=False)
+
+
+def _mamba2_large_norm_case(monkeypatch, d_skip, direction, flush):
+    """Reduced mamba2 (one layer, f32), ``D_skip`` at ``d_skip`` times the
+    reference's init and the direction scaled by ``direction`` (a power
+    of 2): the reference's HVP finite, the port's by both routes within
+    1e-5·(1 + max|h|) of it in every leaf, torch's own rsqrt derivatives
+    not finite by reverse over reverse; ``flush``: torch flushes float32
+    subnormals meanwhile."""
+    arch = "mamba2_370m"
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                                  dtype="float32", num_layers=1)
+    port_cfg = dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="float32", num_layers=1)
+    ref = ref_build_model(ref_cfg)
+    with jax.threefry_partitionable(False):
+        params = jax.tree.map(np.array,
+                              jax.jit(ref.init)(jax.random.PRNGKey(0)))
+    params["layers"]["D_skip"] *= d_skip
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, ref_cfg.vocab_size, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    vec = jax.tree.map(lambda p: (rng.normal(size=p.shape) * direction)
+                       .astype(np.float32), params)
+    want = jax.jit(lambda p, b, v: ref_perfed.hvp(ref.loss, p, b, v))(
+        params, batch, vec)
+    port = build_model(port_cfg)
+
+    def loss(p, b):
+        return port.loss(p, b)[0]
+
+    tp, tv = from_numpy_tree(params, "cpu"), from_numpy_tree(vec, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    try:
+        torch.set_flush_denormal(flush)
+        with one_thread():
+            routes = (perfed.hvp_autograd(loss, tp, tb, tv),
+                      perfed.hvp(loss, tp, tb, tv))
+    finally:
+        torch.set_flush_denormal(False)     # torch's default
+    for got in routes:
+        for path, a, w in zip(tree_paths(got), tree_leaves(got),
+                              jax.tree.leaves(want)):
+            w = np.asarray(w)
+            assert np.isfinite(w).all() and bool(torch.isfinite(a).all()), \
+                path
+            err = float(np.abs(a.numpy().astype(np.float64) - w).max())
+            assert err <= 1e-5 * (1.0 + float(np.abs(w).max())), (path, err)
+
+    monkeypatch.setattr(L, "rmsnorm", _rmsnorm_plain)
     with one_thread():
         bad = perfed.hvp_autograd(loss, tp, tb, tv)
     assert not all(bool(torch.isfinite(x).all()) for x in tree_leaves(bad))
