@@ -35,7 +35,9 @@ and each prints its seconds:
    working set smaller than L2 is timed with L2 flushed before each call).
    Each bf16 attention check, the SSD check (twice: the j <= i mask
    dropped, the diagonal dropped) and the Adam check are also shown a
-   planted fault, which they must reject;
+   planted fault, which they must reject.  Eq. 8 and fused Adam also run
+   their in-place instances (a donated step's launches) at each shape:
+   bitwise the out-of-place launch, timed beside the same bound;
 4. main path of slice 1: ``run_simulation(device="cuda")`` on the
    quickstart config (mnist_dnn at full width, 20 UEs, A = 5), batched and
    then sequential;
@@ -130,7 +132,14 @@ and each prints its seconds:
    path, one launch per leaf (12) a round, held against the reference's
    plain Adam math on the first aggregate that holds gradients — then one
    β-SGD round through the Eq.-8 kernel on the mixed bf16/f32 tree, then
-   ``launch.train --mode scale --arch mamba2_370m --steps 3``;
+   ``launch.train --mode scale --arch mamba2_370m --steps 3``.  Round 2
+   (server Adam) and the Eq.-8 round each run undonated and then donated
+   (``donate=True``) from a host copy of the same state, both under
+   deterministic algorithms: the donated state bitwise the undonated one,
+   every leaf at its argument's address, each round's peak memory above
+   its start printed; the donated round's in-place launches (the largest
+   leaf's Adam, Eq. 8) held against their plain versions on their own
+   inputs, a planted fault rejected;
 11b. train the rest of the zoo (slice 13): the same round loop at full
    width on recurrentgemma-2b (its group and tail) and musicgen-large (12
    of 48 layers) — two server-Adam rounds (the fused Adam kernel once a
@@ -140,7 +149,9 @@ and each prints its seconds:
    self layers and its cross layer, gates drawn nonzero; two clipped
    β-SGD rounds, then the Eq.-8 round), and mixtral-8x22b (1 of 56
    layers, 3 clipped β-SGD rounds: no kernel's route fits beside it);
-   ``ZOO_TRAIN`` gives each one's depth and cohorts;
+   ``ZOO_TRAIN`` gives each one's depth and cohorts; recurrentgemma-2b's
+   Eq.-8 round also runs donated from the same state (``ZOO_DONATED``),
+   bitwise, its peak printed beside the undonated round's;
 11c. the zoo's five families at their reduced f32 configs, 2 semi-sync
    rounds on the card against the CPU's plain route from the same state
    and batches: staleness bitwise, params within 1e-5·(1 + max|p|);
@@ -149,7 +160,10 @@ and each prints its seconds:
    on ``mobile_edge``'s hierarchy, Eq.-8 launches in the simulations;
 12. the SPMD layer (slice 10): on a world-1 NCCL mesh, mamba2's step with
    DTensor state against the plain step (fused Eq. 8, then the server
-   Adam), finite and bitwise; Mixtral's EP against gather; the dry run.
+   Adam), finite and bitwise, and the server Adam's round 2 once more on
+   the mesh, donated, bitwise the undonated one with every local shard
+   written in place; Mixtral's EP against gather; the dry run (yi-6b's
+   train_4k also with ``--opt donate``).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line.
@@ -372,11 +386,28 @@ def phase_kernel_vs_plain(torch, agg, shapes, flushed=()):
         bound, by = _bound(nbytes, flops, H100_F32_FLOPS)
         ctas, threads, per = agg.launch_shape(
             n, agg.vector_width(n, p, buf))
+        # the in-place instance (a donated step's launch, out == p) on a
+        # copy of p: the out-of-place launch's bits, then timed (each call
+        # updates the copy again; the same bytes move)
+        q = p.clone()
+        check(agg.stale_aggregate_flat(q, buf, mask, beta=0.07,
+                                       inplace=True) is q
+              and torch.equal(q, got), f"in-place Eq. 8 at N={n} C={c} "
+              f"differs from the out-of-place launch")
+        err_in = float((q - want).abs().max())
+        t_in = device_ms(torch, lambda: agg.stale_aggregate_flat(
+            q, buf, mask, beta=0.07, inplace=True))
+        del q
         rows[(n, c)] = dict(max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
                             library_ms=t_lib, bound_ms=bound, bound_by=by,
-                            grid=[ctas, threads, per])
+                            grid=[ctas, threads, per],
+                            inplace=dict(max_abs_err=err_in, ms=t_in,
+                                         bound_ms=bound, bound_by=by,
+                                         bitwise_out_of_place=True))
         print(f"[kernel] stale_aggregate N={n} C={c}: err={err:.3e} "
               f"(tol {tol:.1e})  kernel={t_kernel * 1e3:.2f} us  "
+              f"in place={t_in * 1e3:.2f} us (bitwise the out-of-place "
+              f"launch)  "
               f"plain={t_plain * 1e3:.2f} us  addmv={t_lib * 1e3:.2f} us  "
               f"bound={bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB; grid "
               f"{ctas} CTAs x {threads} threads x {per} groups a thread)")
@@ -411,14 +442,14 @@ def _capture_eq8(agg):
     seen, first = collections.Counter(), {}
     orig = agg.stale_aggregate_flat
 
-    def recording(params, buffers, mask, *, beta):
+    def recording(params, buffers, mask, *, beta, inplace=False):
         if params.is_cuda:
             shape = (int(buffers.shape[1]), int(buffers.shape[0]))
             seen[shape] += 1
             if shape not in first:
                 first[shape] = (params.clone(), buffers.clone(),
                                 mask.clone(), float(beta))
-        return orig(params, buffers, mask, beta=beta)
+        return orig(params, buffers, mask, beta=beta, inplace=inplace)
 
     agg.stale_aggregate_flat = recording
     return seen, first, orig
@@ -1386,7 +1417,18 @@ def phase_adam_vs_plain(torch, adam):
               f"Adam check ({name})")
         print(f"[control] adam ({name}), planted fault 'bias corrections "
               f"dropped': max abs p error {fault_err:.3e}, rejected")
-        del got, want, fault
+        # the in-place instance (a donated step's launch) on copies of p,
+        # m and v: the out-of-place launch's bits
+        pc, mc, vc = p.clone(), m.clone(), v.clone()
+        got_in = adam.fused_adam_flat(pc, mc, vc, grad, lr=lr, t=t,
+                                      b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS,
+                                      inplace=True)
+        check(all(x is y and torch.equal(x, z)
+                  for x, y, z in zip(got_in, (pc, mc, vc), got)),
+              f"in-place fused Adam ({name}) differs from the out-of-place "
+              f"launch")
+        err_in = adam_close(torch, got_in, want)[1]
+        del got, want, fault, got_in
         pe, ge = p.element_size(), grad.element_size()
         nbytes = n * (2 * pe + ge + 16)
         # a working set that fits in L2 is timed from HBM all the same
@@ -1406,11 +1448,20 @@ def phase_adam_vs_plain(torch, adam):
         t_lib = device_ms(torch, yard.step, reps=3, trials=10, flush_l2=flush)
         del yard, p32
         bound, by = _bound(nbytes, 14 * n, H100_F32_FLOPS)
+        # each call updates the copies again; the same bytes move
+        t_in = device_ms(torch, lambda: adam._update(
+            pc, mc, vc, grad, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS,
+            inplace=True), reps=3, trials=10, flush_l2=flush)
+        del pc, mc, vc
         rows[name] = dict(max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
                           library_ms=t_lib, bound_ms=bound, bound_by=by,
-                          n=n, p_dtype=p_dt, g_dtype=g_dt, l2_flushed=flush)
+                          n=n, p_dtype=p_dt, g_dtype=g_dt, l2_flushed=flush,
+                          inplace=dict(max_abs_err=err_in, ms=t_in,
+                                       bound_ms=bound, bound_by=by,
+                                       bitwise_out_of_place=True))
         print(f"[adam] {name}: N={n} p {p_dt} g {g_dt}: max abs p err "
-              f"{err:.3e}  kernel={t_kernel:.3f} ms  plain={t_plain:.3f} ms  "
+              f"{err:.3e}  kernel={t_kernel:.3f} ms  in place={t_in:.3f} ms "
+              f"(bitwise the out-of-place launch)  plain={t_plain:.3f} ms  "
               f"torch.optim.Adam(fused=True) f32={t_lib:.3f} ms  "
               f"bound={bound:.3f} ms ({by}; {nbytes / 1e9:.3f} GB; "
               f"{nbytes / t_kernel / 1e6:.0f} GB/s"
@@ -1893,12 +1944,16 @@ def remat_round(torch, mods, cfg, exp, opt, state, cohorts, batches, mask,
                 peak_gib=(out[True][2], out[False][2]))
 
 
-def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
+def phase_train_mamba(torch, adam, agg, mods, smi="", *, reduce=False,
                       device="cuda"):
     """``train_e2e``'s round loop on mamba2-370m (bf16, attn_impl "xla":
     the SSD kernel has no backward, as in the reference): 4 cohorts, A 2,
     S 2, batch 4, seq 256, server Adam, 3 rounds; then one β-SGD round
-    through the Eq.-8 kernel; then ``launch.train --mode scale``."""
+    through the Eq.-8 kernel; then ``launch.train --mode scale``.  Round 2
+    (server Adam) and the Eq.-8 round each run undonated and then donated
+    from a host copy of the same state (``donated_pair``), the donated
+    round's in-place launch (the largest leaf's Adam, Eq. 8) held against
+    its plain version on its own inputs."""
     cfg = mods.get_config("mamba2_370m")
     cohorts, part, stale, bsz, seq, rounds = 4, 2, 2, 4, 256, 3
     if reduce:
@@ -1918,6 +1973,7 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
               batch=bsz, seq=seq, device=device)
     adam.LAUNCHES = 0
     per_round, seconds, adam_err = [], [], None
+    donated = {}
     for k in range(rounds):
         if k == 2:
             # round 2 is the first whose aggregate holds gradients (rounds
@@ -1928,10 +1984,32 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
                 torch, adam, mods, opt, exp, state,
                 torch.as_tensor(pi[k], dtype=torch.float32, device=device))
             adam.LAUNCHES = before      # comparison launches do not count
-        before = adam.LAUNCHES
-        state, rec = e2e.train_rounds(model, exp, opt, state,
-                                      rounds=range(k, k + 1), **kw)
-        per_round.append(adam.LAUNCHES - before)
+            # ... then run it undonated and donated, from the same state
+            last, orig = _last_adam(adam, largest=True)
+            box = [state]
+            del state
+            try:
+                state, rec, pair = donated_pair(
+                    torch, mods, model, exp, opt, box, k, kw, adam, smi,
+                    arm=last, what=f"{cfg.name}, server Adam")
+            finally:
+                adam._update = orig
+            per_round.append(pair["undonated"]["launches"])
+            donated["adam"] = pair
+            if device == "cuda":
+                before = adam.LAUNCHES
+                pair["held"] = hold_adam_spmd(
+                    torch, adam, last, what="the donated round's in-place")
+                adam.LAUNCHES = before  # comparison launches do not count
+                _print_inplace_hold("fused Adam, the donated round's "
+                                    "in-place launch on the largest leaf",
+                                    pair["held"], smi)
+            del last
+        else:
+            before = adam.LAUNCHES
+            state, rec = e2e.train_rounds(model, exp, opt, state,
+                                          rounds=range(k, k + 1), **kw)
+            per_round.append(adam.LAUNCHES - before)
         seconds.append(rec[0]["seconds"])
         print(f"[train] round {k} mask {rec[0]['mask']}: "
               f"{rec[0]['seconds']:.2f} s, grad norm "
@@ -1969,14 +2047,33 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
     sgd = mods.make_optimizer("sgd")
     check(mods.semi_sync.uses_fused_eq8(sgd, exp_f), "--fused-agg settings "
           "do not take the Eq.-8 path")
-    st = mods.semi_sync.SemiSyncState(state.params, sgd.init(state.params),
-                                      state.buffers, state.staleness,
-                                      state.step)
+    box = [mods.semi_sync.SemiSyncState(state.params,
+                                        sgd.init(state.params),
+                                        state.buffers, state.staleness,
+                                        state.step)]
     del state
-    before = agg.LAUNCHES
-    st, rec = e2e.train_rounds(model, exp_f, sgd, st,
-                               rounds=range(rounds, rounds + 1), **kw)
-    eq8 = agg.LAUNCHES - before
+    # undonated and donated from the same state; the donated round's
+    # in-place Eq.-8 launch recorded (host copies of its inputs and output)
+    last, orig = _last_eq8(agg)
+    try:
+        st, rec, pair = donated_pair(
+            torch, mods, model, exp_f, sgd, box, rounds, kw, agg, smi,
+            arm=last, what=f"{cfg.name}, --fused-agg (Eq. 8)")
+    finally:
+        agg.stale_aggregate_flat = orig
+    donated["eq8"] = pair
+    eq8 = pair["undonated"]["launches"]
+    if device == "cuda":
+        check(pair["donated"]["launches"] == 1 and "out" in last,
+              "the donated --fused-agg round did not launch Eq. 8 in "
+              "place once")
+        before = agg.LAUNCHES
+        pair["held"] = hold_eq8_spmd(torch, agg, last["args"],
+                                     got=last["out"])
+        agg.LAUNCHES = before           # comparison launches do not count
+        _print_inplace_hold("Eq. 8, the donated round's in-place launch",
+                            pair["held"], smi)
+    del last
     dtypes = sorted({str(x.dtype) for x in mods.tree_leaves(st.params)})
     check(all(math.isfinite(float(x.float().abs().max()))
               for x in mods.tree_leaves(st.params)), "fused round: params "
@@ -2001,7 +2098,17 @@ def phase_train_mamba(torch, adam, agg, mods, *, reduce=False,
     print(f"[train] launch.train --mode scale --arch mamba2_370m --steps 3: "
           f"{t_scale:.1f} s")
     del st_s
-    return sum(per_round), per_round, seconds, peak, adam_err, eq8, remat
+    return (sum(per_round), per_round, seconds, peak, adam_err, eq8, remat,
+            donated)
+
+
+def _print_inplace_hold(what, row, smi):
+    shape = f"N {row['n']:,}" + (f", C {row['c']}" if "c" in row else "")
+    print(f"[donate] {what} ({shape}): vs its plain version on its own "
+          f"inputs err {row['max_abs_err']:.3e}, planted fault "
+          f"{row['fault_err']:.3e} rejected; in place {row['ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}) [{smi}]")
 
 
 # ---------------------------------------------------------------------------
@@ -2029,6 +2136,10 @@ ZOO_TRAIN = (("recurrentgemma_2b", 5, 2, 1, ("adam", "eq8")),
              ("musicgen_large", 12, 4, 2, ("adam", "eq8")),
              ("mixtral_8x22b", 1, 2, 1, ("sgd",)))
 ZOO_TRAIN_ROUNDS = 3        # two server rounds, then the Eq.-8 round
+# the families whose Eq.-8 round also runs donated from the same state
+# (its peak printed beside the undonated round's; ZOO_TRAIN's cuts are
+# the undonated rounds')
+ZOO_DONATED = ("recurrentgemma_2b",)
 # CUDA against the CPU at the reduced f32 configs of the CPU parity tests
 # (their FL settings and masks: S 1, 3 cohorts), both of their routes
 ZOO_HOLD_ARCHS = (("recurrentgemma_2b", 0.0), ("mixtral_8x22b", 1.0),
@@ -2071,7 +2182,9 @@ def _holding_eq8(torch, agg, out):
     Results go to ``out``; the launch count stays the wrapper's own."""
     orig = agg.stale_aggregate_flat
 
-    def holding(params, buffers, mask, *, beta):
+    def holding(params, buffers, mask, *, beta, inplace=False):
+        if inplace:                     # its inputs are gone once it ran
+            return orig(params, buffers, mask, beta=beta, inplace=True)
         got = orig(params, buffers, mask, beta=beta)
         if params.is_cuda:
             n, c = int(params.shape[0]), int(buffers.shape[0])
@@ -2180,27 +2293,35 @@ def phase_train_zoo(torch, adam, agg, mods, arch, layers, cohorts, part,
               f"Adam launches a round {adam_launches}, not one a leaf "
               f"({n_leaves})")
 
-    eq8_row, loss2 = None, loss1
+    eq8_row, loss2, donated = None, loss1, None
     if "eq8" in routes:
         exp_f = e2e.experiment_cfg(cfg, staleness=stale, fused_agg=True)
         sgd = mods.make_optimizer("sgd")
         check(mods.semi_sync.uses_fused_eq8(sgd, exp_f), "--fused-agg "
               "settings do not take the Eq.-8 path")
-        st = mods.semi_sync.SemiSyncState(state.params,
-                                          sgd.init(state.params),
-                                          state.buffers, state.staleness,
-                                          state.step)
+        box = [mods.semi_sync.SemiSyncState(state.params,
+                                            sgd.init(state.params),
+                                            state.buffers, state.staleness,
+                                            state.step)]
         del state
         if device == "cuda":
             torch.cuda.empty_cache()
         holds = []
         orig = _holding_eq8(torch, agg, holds)
         try:
-            before = agg.LAUNCHES
-            st, rec = e2e.train_rounds(
-                model, exp_f, sgd, st,
-                rounds=range(server_rounds, server_rounds + 1), **kw)
-            eq8_launches.append(agg.LAUNCHES - before)
+            if arch in ZOO_DONATED:
+                # undonated (its launch held), then donated from a host
+                # copy of the same state
+                st, rec, donated = donated_pair(
+                    torch, mods, model, exp_f, sgd, box, server_rounds, kw,
+                    agg, smi, what=f"{arch}, --fused-agg (Eq. 8)")
+                eq8_launches.append(donated["undonated"]["launches"])
+            else:
+                before = agg.LAUNCHES
+                st, rec = e2e.train_rounds(
+                    model, exp_f, sgd, box.pop(),
+                    rounds=range(server_rounds, server_rounds + 1), **kw)
+                eq8_launches.append(agg.LAUNCHES - before)
         finally:
             agg.stale_aggregate_flat = orig
         seconds.append(rec[0]["seconds"])
@@ -2254,7 +2375,7 @@ def phase_train_zoo(torch, adam, agg, mods, arch, layers, cohorts, part,
     return dict(params=n_params, leaves=n_leaves, seconds=seconds,
                 peak_gib=peak, adam_launches=adam_launches,
                 eq8_launches=eq8_launches, losses=[loss0, loss1, loss2],
-                adam=adam_row, eq8=eq8_row)
+                adam=adam_row, eq8=eq8_row, donated=donated)
 
 
 def _hold_cfgs(mods, arch, grad_clip):
@@ -3798,10 +3919,11 @@ def phase_serve_zoo(torch, mods, arch, *, reduce=False, device="cuda"):
 # ---------------------------------------------------------------------------
 
 # the dry run's production-mesh cases: (arch, shape, mesh, moe impl)
-# (arch, shape, mesh, moe impl, levers); yi-6b's train_4k runs twice, the
-# second time without activation checkpointing
+# (arch, shape, mesh, moe impl, levers); yi-6b's train_4k runs three
+# times on one pod: as it is, without activation checkpointing, and donated
 DRYRUN_CASES = (("yi_6b", "train_4k", "single_pod", "gather", ()),
                 ("yi_6b", "train_4k", "single_pod", "gather", ("no_remat",)),
+                ("yi_6b", "train_4k", "single_pod", "gather", ("donate",)),
                 ("yi_6b", "train_4k", "multi_pod", "gather", ()),
                 ("mixtral_8x22b", "train_4k", "single_pod", "ep", ()),
                 ("llama32_vision_11b", "decode_32k", "single_pod", "gather",
@@ -3870,7 +3992,8 @@ def finish_dryrun(procs, out_dir, smi, t_start):
                   f"{mem['argument_bytes']} B (params "
                   f"{mem['param_bytes']} B), peak {mem['peak_bytes']} B "
                   f"({mem['peak_bytes'] / 2**30:.2f} GiB), temp "
-                  f"{mem['temp_bytes']} B, FLOPs "
+                  f"{mem['temp_bytes']} B, outputs aliasing arguments "
+                  f"{mem['alias_bytes']} B, FLOPs "
                   f"{rec['flops']:.4e}, bytes accessed "
                   f"{rec['bytes_accessed']:.4e}, collectives "
                   f"{json.dumps(coll)}; roofline on H100 SXM5 rates: compute "
@@ -3907,24 +4030,32 @@ def _last_eq8(agg):
     last = {"armed": False}
     orig = agg.stale_aggregate_flat
 
-    def recording(params, buffers, mask, *, beta):
+    def recording(params, buffers, mask, *, beta, inplace=False):
         if params.is_cuda and last["armed"]:
             last["args"] = (params.cpu(), buffers.cpu(), mask.cpu(),
                             float(beta))
-        return orig(params, buffers, mask, beta=beta)
+        out = orig(params, buffers, mask, beta=beta, inplace=inplace)
+        if params.is_cuda and last["armed"] and inplace:
+            last["out"] = out.cpu()
+        return out
 
     agg.stale_aggregate_flat = recording
     return last, orig
 
 
-def hold_eq8_spmd(torch, agg, args):
-    """Eq. 8 against its plain version on the mesh path's own last launch;
-    the check must reject the plain version with one arriving cohort's
-    weight dropped.  Timed once beside the plain version and the bound."""
+def hold_eq8_spmd(torch, agg, args, got=None):
+    """Eq. 8 against its plain version on a path's own last launch (the
+    mesh path's, or, with ``got`` its recorded output, a donated round's
+    in-place launch); the check must reject the plain version with one
+    arriving cohort's weight dropped.  Timed once beside the plain version
+    and the bound, in place where the path launched in place (on a copy
+    of its p, which each call updates again)."""
     p, buf, mask = (x.cuda() for x in args[:3])
     beta = args[3]
     n, c = int(p.shape[0]), int(buf.shape[0])
-    got = agg.stale_aggregate_flat(p, buf, mask, beta=beta)
+    inplace = got is not None
+    got = (got.cuda() if inplace
+           else agg.stale_aggregate_flat(p, buf, mask, beta=beta))
     want = agg.stale_aggregate_plain(p, buf, mask, beta=beta)
     tol = 1e-6 * (1.0 + float(p.abs().max()))
     err = float((got - want).abs().max())
@@ -3936,14 +4067,17 @@ def hold_eq8_spmd(torch, agg, args):
                   .abs().max())
     check(fault > tol, f"spmd Eq. 8: the check accepts a planted fault "
           f"({fault} <= {tol})")
+    q = p.clone() if inplace else p
     t_kernel = device_ms(torch, lambda: agg.stale_aggregate_flat(
-        p, buf, mask, beta=beta), reps=5, trials=5)
+        q, buf, mask, beta=beta, inplace=inplace), reps=5, trials=5)
+    del q
     t_plain = device_ms(torch, lambda: agg.stale_aggregate_plain(
         p, buf, mask, beta=beta), reps=2, trials=3)
     bound, by = _bound((c + 2) * n * 4 + c * 4, 2 * c * n + n,
                        H100_F32_FLOPS)
     return dict(n=n, c=c, max_abs_err=err, fault_err=fault, ms=t_kernel,
-                plain_ms=t_plain, bound_ms=bound, bound_by=by)
+                plain_ms=t_plain, bound_ms=bound, bound_by=by,
+                inplace=inplace)
 
 
 def _last_adam(adam, largest=False):
@@ -3956,12 +4090,17 @@ def _last_adam(adam, largest=False):
     last = {"armed": False}
     orig = adam._update
 
-    def recording(p, m, v, g, scal, *, b1, b2, eps):
-        out = orig(p, m, v, g, scal, b1=b1, b2=b2, eps=eps)
-        if p.is_cuda and last["armed"] and not (
-                largest and "args" in last
-                and last["args"][0].numel() >= p.numel()):
-            last.update(args=(p, m, v, g.cpu(), scal), out=out)
+    def recording(p, m, v, g, scal, *, b1, b2, eps, inplace=False):
+        keep = p.is_cuda and last["armed"] and not (
+            largest and "args" in last
+            and last["args"][0].numel() >= p.numel())
+        if keep and inplace:            # the launch overwrites p, m, v
+            before = [x.cpu() for x in (p, m, v)]
+        out = orig(p, m, v, g, scal, b1=b1, b2=b2, eps=eps, inplace=inplace)
+        if keep:
+            args = (p, m, v) if not inplace else before
+            last.update(args=(*args, g.cpu(), scal), out=out,
+                        inplace=inplace)
         return out
 
     adam._update = recording
@@ -3974,7 +4113,8 @@ def hold_adam_spmd(torch, adam, last, what="spmd"):
     bc2]); the plain version with the bias corrections dropped must be
     rejected.  Timed once beside the plain version and the bound."""
     p, m, v, g, scal = last["args"]
-    g = g.cuda()
+    p, m, v, g = (x.cuda() for x in (p, m, v, g))
+    inplace = last.get("inplace", False)
     want = adam.fused_adam_plain(p, m, v, g, scal, b1=ADAM_B1, b2=ADAM_B2,
                                  eps=ADAM_EPS)
     ok, err = adam_close(torch, last["out"], want)
@@ -3987,16 +4127,152 @@ def hold_adam_spmd(torch, adam, last, what="spmd"):
         p, m, v, g, no_bc, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), want)
     check(not bad, f"{what} fused Adam: the check accepts the planted "
           f"fault 'bias corrections dropped'")
+    # in place on the host copies' card copies (each call updates them)
     flat = [x.reshape(-1) for x in (p, m, v, g)]
     t_kernel = device_ms(torch, lambda: adam._update(
-        *flat, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), reps=3, trials=5)
+        *flat, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, inplace=inplace),
+        reps=3, trials=5)
     t_plain = device_ms(torch, lambda: adam.fused_adam_plain(
         *flat, scal, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS), reps=1, trials=3)
     nbytes = n * (2 * p.element_size() + g.element_size() + 16)
     bound, by = _bound(nbytes, 14 * n, H100_F32_FLOPS)
     return dict(n=n, p_dtype=str(p.dtype).replace("torch.", ""),
                 max_abs_err=err, fault_err=fault_err, ms=t_kernel,
-                plain_ms=t_plain, bound_ms=bound, bound_by=by)
+                plain_ms=t_plain, bound_ms=bound, bound_by=by,
+                inplace=inplace)
+
+
+class HostState:
+    """A host copy of a state (named tuples, dicts, tensors; a DTensor as
+    its local shard and its layout), so that a donated round can start
+    from the same state as an undonated one without a second copy on the
+    card."""
+
+    def __init__(self, torch, state):
+        from torch.utils._pytree import tree_map
+
+        def hold(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            if hasattr(x, "to_local"):
+                return (x.to_local().cpu(), (x.device_mesh, x.placements,
+                                             x.shape, x.stride()))
+            return (x.cpu(), None)
+
+        self.tree = tree_map(hold, state)
+        self.torch = torch
+
+    def to_device(self, device):
+        """The state back on ``device``: new tensors (DTensors laid out as
+        they were)."""
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_map
+
+        def back(pair):
+            t, layout = pair
+            t = t.to(device)
+            if layout is None:
+                return t
+            mesh, pl, shape, stride = layout
+            return DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=shape, stride=stride)
+
+        return tree_map(back, self.tree, is_leaf=lambda x: isinstance(
+            x, tuple) and len(x) == 2 and isinstance(x[0],
+                                                     self.torch.Tensor))
+
+
+def _state_leaves(mods, state):
+    """A step state's tensors, dicts in sorted key order (the same order
+    whichever route built them)."""
+    out = []
+    for part in state:
+        out += [x for x in mods.tree_leaves(part) if hasattr(x, "dtype")]
+    return out
+
+
+def _addresses(mods, state):
+    return [(x.to_local() if hasattr(x, "to_local") else x).data_ptr()
+            for x in _state_leaves(mods, state)]
+
+
+def donated_pair(torch, mods, model, exp, opt, box, k, kw, kernel, smi, *,
+                 arm=None, what=""):
+    """Round ``k`` of ``train_e2e``'s loop (``kw``: its schedule, corpora,
+    batch, seq and device) from the state in ``box`` (a one-element list:
+    the caller keeps no reference of its own, so the old state goes once
+    the round has made the new one), undonated, then again from a host
+    copy of that state taken first, donated (``donate=True``), both under
+    deterministic algorithms (a scatter-add's atomics would otherwise
+    differ between any two runs).  The undonated round's state waits on
+    the host meanwhile, so the card holds one state in the donated round,
+    as a caller's would.  The donated round must return its argument
+    itself, every leaf at its own address and holding the undonated
+    round's bits (bit patterns: a NaN equals a NaN).  ``arm`` (a launch
+    recorder's dict) is armed for the donated round only.  Returns (the
+    donated round's state, to go on from, the undonated round's
+    ``train_rounds`` record, each round's seconds, peak GiB above its
+    start and ``kernel``'s launches)."""
+    e2e, device = mods.train_e2e, kw["device"]
+    held = HostState(torch, box[0])
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rounds = {}
+
+    def run(state, donate):
+        base = _peak_base(torch, device)
+        before = kernel.LAUNCHES
+        new, rec = e2e.train_rounds(model, exp, opt, state,
+                                    rounds=range(k, k + 1), donate=donate,
+                                    **kw)
+        rounds[donate] = dict(seconds=rec[0]["seconds"],
+                              peak_gib=_peak_above(torch, device, base),
+                              launches=kernel.LAUNCHES - before)
+        return new, rec
+
+    try:
+        new, und_rec = run(box.pop(), False)
+        undonated = HostState(torch, new)
+        del new
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        state = held.to_device(device)
+        del held
+        ptrs = _addresses(mods, state)
+        if arm is not None:
+            arm["armed"] = True
+        try:
+            out, rec = run(state, True)
+        finally:
+            if arm is not None:
+                arm["armed"] = False
+        check(out is state and _addresses(mods, out) == ptrs,
+              f"{what}: the donated round did not return its own state "
+              f"with every leaf at its address")
+        del out
+    finally:
+        torch.use_deterministic_algorithms(det)
+    want = undonated.to_device(device)
+    del undonated
+    pairs = list(zip(_state_leaves(mods, state), _state_leaves(mods, want)))
+    for i, (x, y) in enumerate(pairs):
+        check(same_bits(torch, x, y), f"{what}: leaf {i} of the donated "
+              f"round differs from the undonated round's")
+    for key, v in und_rec[0]["metrics"].items():
+        check(same_bits(torch, v, rec[0]["metrics"][key]), f"{what}: metric "
+              f"{key} of the donated round differs")
+    in_place = sum(x.numel() * x.element_size() for x, _ in pairs)
+    del want, pairs
+    und, don = rounds[False], rounds[True]
+    print(f"[donate] {what}, round {k}: the donated round (donate=True) "
+          f"returned its own state, all {len(ptrs)} leaves "
+          f"({in_place / 2**30:.2f} GiB) at their addresses and bitwise the "
+          f"undonated round's; seconds {und['seconds']:.2f} undonated, "
+          f"{don['seconds']:.2f} donated; peak memory above the round's "
+          f"start {und['peak_gib']:.2f} GiB undonated, {don['peak_gib']:.2f}"
+          f" GiB donated [{smi}]")
+    return state, und_rec, dict(undonated=und, donated=don,
+                                leaves=len(ptrs), in_place_bytes=in_place)
 
 
 def _peak_base(torch, device):
@@ -4069,7 +4345,7 @@ def _spmd_rounds(torch, mods, step, state, corpora, *, bsz, seq, device,
                  record=False, keep_first=True, base=0):
     """``SPMD_MASKS``' rounds from ``state``.  Returns (state, seconds a
     round, a copy of the buffers after the first round or None, extras):
-    ``on_last()`` runs before the last round; ``count()`` (a launch
+    ``on_last(state)`` runs before the last round; ``count()`` (a launch
     counter) gives extras["launches"] a round; ``record`` takes an
     allocator snapshot of the last round on the card (extras["start_gib"]:
     allocated at its start above ``base`` bytes, extras["split"]:
@@ -4081,7 +4357,7 @@ def _spmd_rounds(torch, mods, step, state, corpora, *, bsz, seq, device,
                                                seq=seq, device=device)
         mask = torch.tensor(m, dtype=torch.float32, device=device)
         if last and on_last is not None:
-            on_last()
+            on_last(state)
         recording = last and record and device == "cuda"
         if device == "cuda":
             torch.cuda.synchronize()
@@ -4183,7 +4459,8 @@ def phase_spmd_mamba(torch, agg, mods, mesh, smi, *, reduce=False,
         st_mesh, mesh_s, first_mesh, mesh_ex = _spmd_rounds(
             torch, mods, step, st_mesh, corpora, bsz=bsz, seq=seq,
             device=device, mesh=mesh, rules=rules,
-            on_last=lambda: last.update(armed=True), record=True, base=base)
+            on_last=lambda st: last.update(armed=True), record=True,
+            base=base)
         launches = agg.LAUNCHES
     finally:
         agg.stale_aggregate_flat = orig
@@ -4317,10 +4594,16 @@ def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
         st_mesh = mods.semi_sync.init_state(model, gen(), opt, cohorts,
                                             mesh=mesh, rules=rules)
     last, orig = _last_adam(adam)
+    held = {}
+
+    def before_round_2(st):
+        last.update(armed=True)
+        held["state"] = HostState(torch, st)
+
     try:
         st_mesh, mesh_s, _, mesh_ex = _spmd_rounds(
             torch, mods, step, st_mesh, corpora, mesh=mesh, rules=rules,
-            on_last=lambda: last.update(armed=True), base=base, **kw)
+            on_last=before_round_2, base=base, **kw)
     finally:
         adam._update = orig
     peak = _peak_above(torch, device, base)
@@ -4358,7 +4641,52 @@ def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
               f"{n_leaves} (one a leaf)")
         row = hold_adam_spmd(torch, adam, last)
     t = int(local(st_mesh.opt_state["t"]))
-    del st_mesh, st_plain, last
+    del st_plain
+    # round 2 once more on the mesh, donated, from a host copy of the
+    # state it started from: bitwise the undonated round, every local
+    # shard written in place, the placements kept
+    k = len(SPMD_MASKS) - 1
+    donated = held.pop("state").to_device(device)
+    ptrs = _addresses(mods, donated)
+    placements = [getattr(x, "placements", None)
+                  for x in _state_leaves(mods, donated)]
+    dstep = mods.semi_sync.make_semi_sync_step(model, exp, opt, cohorts,
+                                               donate=True)
+    batches = mods.train_e2e.round_batches(corpora, k, batch=bsz, seq=seq,
+                                           device=device)
+    mask = torch.tensor(SPMD_MASKS[k], dtype=torch.float32, device=device)
+    base = _peak_base(torch, device)
+    t0 = time.perf_counter()
+    with mods.sharding.use_mesh(mesh, rules):
+        out, _ = dstep(donated, batches, mask)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    donated_s = time.perf_counter() - t0
+    donated_peak = _peak_above(torch, device, base)
+    check(out is donated and _addresses(mods, out) == ptrs
+          and placements == [getattr(x, "placements", None)
+                             for x in _state_leaves(mods, out)],
+          "spmd adam: the donated mesh round did not update its state's "
+          "own local shards in place, or moved their placements")
+    for i, (x, y) in enumerate(zip(_state_leaves(mods, out),
+                                   _state_leaves(mods, st_mesh))):
+        check(same_bits(torch, local(x), local(y)), f"spmd adam: leaf {i} "
+              f"of the donated mesh round differs from the undonated one")
+    und_peak = (mesh_ex["split"][0] / 2**30 if "split" in mesh_ex
+                else float("nan"))
+    donated_rec = dict(seconds=donated_s, peak_gib=donated_peak,
+                       undonated_seconds=mesh_s[-1],
+                       undonated_round_peak_gib=und_peak,
+                       leaves=len(ptrs))
+    print(f"[spmd] {cfg.name} at {cfg.num_layers} layers, server Adam, "
+          f"round 2 on the mesh donated (donate=True, from a host copy of "
+          f"its start): all {len(ptrs)} leaves bitwise the undonated "
+          f"round's, each local shard at its own address, placements "
+          f"kept; {donated_s:.3f} s (undonated {mesh_s[-1]:.3f} s); "
+          f"peak above the round's start {donated_peak:.2f} GiB "
+          f"(undonated: its allocations peak at {und_peak:.2f} GiB) "
+          f"[{smi}]")
+    del st_mesh, out, donated, last
     print(f"[spmd] {cfg.name} at {cfg.num_layers} layers, server Adam "
           f"(clip {exp.train.grad_clip}, lr β {exp.fl.beta}), masks "
           f"{list(SPMD_MASKS)}: DTensor state "
@@ -4382,7 +4710,7 @@ def _spmd_adam(torch, adam, mods, mesh, rules, cfg, corpora, gen, smi, *,
                 launches=sum(mesh_ex["launches"]),
                 launches_a_round=mesh_ex["launches"], mesh_s=mesh_s,
                 plain_s=plain_s, peak_gib=peak, plain_peak_gib=peak_plain,
-                row=row)
+                row=row, donated=donated_rec)
 
 
 def phase_spmd_mixtral(torch, fa, mods, mesh, smi, *, reduce=False,
@@ -4755,8 +5083,8 @@ def main():
         zoo[arch] = dict(score=score, serve=timed(
             f"serve {arch}", phase_serve_zoo, torch, mods, arch))
         torch.cuda.empty_cache()
-    adam_launches, *_ = timed("train mamba2", phase_train_mamba, torch, adam,
-                              agg, mods)
+    adam_launches, *_, train_donated = timed(
+        "train mamba2", phase_train_mamba, torch, adam, agg, mods, smi)
     torch.cuda.empty_cache()
     # slice 13: the zoo's training path, counted from 0
     adam.LAUNCHES = agg.LAUNCHES = 0
@@ -4838,7 +5166,16 @@ def main():
              "path": "repro_torch.examples' simulations at their own "
                      "settings",
              "launches": examples_eq8,
-             "per_example": examples["per_example"]}},
+             "per_example": examples["per_example"]},
+         "donated": {
+             "path": "mamba2-370m's --fused-agg round run donated "
+                     "(donate=True): the in-place instance on the flat f32 "
+                     "copy of the params, held against the plain version "
+                     "on its own inputs; bound as the out-of-place launch's",
+             "launches": train_donated["eq8"]["donated"]["launches"],
+             "round_peak_gib": {k: train_donated["eq8"][k]["peak_gib"]
+                                for k in ("undonated", "donated")},
+             **train_donated["eq8"].get("held", {})}},
         {"name": "fused_adam_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
          "replaces": "src/repro/kernels/fused_adam.py:36",
@@ -4863,7 +5200,16 @@ def main():
                      f"mesh, 2 rounds, one launch a leaf a round on its "
                      f"local shard through local_map",
              "launches": spmd["mamba"]["adam"]["launches"],
-             **(spmd["mamba"]["adam"]["row"] or {})}},
+             **(spmd["mamba"]["adam"]["row"] or {})},
+         "donated": {
+             "path": "mamba2-370m's round 2 of server Adam run donated "
+                     "(donate=True): one in-place launch a leaf, the "
+                     "largest leaf's held against the plain version on its "
+                     "own inputs",
+             "launches": train_donated["adam"]["donated"]["launches"],
+             "round_peak_gib": {k: train_donated["adam"][k]["peak_gib"]
+                                for k in ("undonated", "donated")},
+             **train_donated["adam"].get("held", {})}},
         {"name": "flash_attention_bhld", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:75",

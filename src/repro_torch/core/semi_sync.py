@@ -37,6 +37,20 @@ of DTensors placed by ``launch/specs.state_shardings`` on a
   on the (data, model) sub-mesh, and writes its own buffer rows; params,
   buffers and batches stay sharded throughout.
 
+Both steps take ``donate`` (default False), the counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0,))``: a donated step updates
+the state it is given in place and returns that same state, every tensor
+leaf the argument's own tensor (the same storage, on a mesh each DTensor's
+local shard), with the same bits as the undonated step's new state.  It
+holds no second copy of the params, moments or buffer bank: Eq. 8 and the
+fused Adam launch their in-place kernel instances, the other optimizers
+write leaf by leaf, and each refreshed buffer row is written into its slot
+as soon as its meta-gradient is made.  The writes keep the functional
+step's order: Eq. 8 (or the optimizer) reads every buffer row before any
+row is refreshed, and every refresh computes its meta-gradient at the
+updated params; each write happens after the last use of the tensor it
+overwrites by any autograd graph, under ``no_grad``.
+
 Both routes take the cohorts one at a time (the reference vmaps them: on
 its mesh each pod holds one), and both differentiate through
 ``torch.autograd`` (``perfed``'s ``autograd=True``: the Hessian-vector
@@ -59,10 +73,15 @@ from repro_torch.kernels.stale_aggregate import (masked_aggregate_tree,
                                                  stale_aggregate_tree,
                                                  stale_aggregate_update)
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.sharding import write_into
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class SemiSyncState(NamedTuple):
+    """A semi-synchronous step's state.  An undonated step leaves it as it
+    was and returns a new one; after a donated step (``donate=True``) the
+    caller's state *is* the new one: every tensor in it was updated in
+    place, and the step returned it."""
     params: Any                  # meta model w_k
     opt_state: Any               # server optimizer state (empty for β-SGD)
     buffers: Any                 # per-cohort pending grads [n_cohorts, ...]
@@ -211,23 +230,44 @@ def _over_local_shards(fn, params, buffers, mask):
     return tree_unflatten(params, out)
 
 
-def _stale_aggregate_mesh(params, buffers, mask, *, beta):
-    """Fused Eq. (8) on DTensors: the kernel (``stale_aggregate_flat``)
-    once on each rank's local shards (params [N], buffers [C, N])."""
-    def local_eq8(pl, bl, m):
-        c = m.shape[0]
-        flat = stale_aggregate_update(
-            torch.cat([x.reshape(-1).to(torch.float32) for x in pl]),
-            torch.cat([x.reshape(c, -1).to(torch.float32) for x in bl],
-                      dim=1),
-            m, beta=beta)
-        out, o = [], 0
-        for x in pl:
-            out.append(flat[o:o + x.numel()].reshape(x.shape).to(x.dtype))
-            o += x.numel()
-        return out
+def _eq8_local(pl, bl, m, *, beta, inplace):
+    """Eq. (8) on one rank's local shards: the param leaves ``pl`` and
+    buffer leaves ``bl`` flattened to f32 [N] and [C, N], the kernel once
+    (into the flat copy of the params with ``inplace``); returns each
+    leaf's f32 slice of the result."""
+    c = m.shape[0]
+    flat = stale_aggregate_update(
+        torch.cat([x.reshape(-1).to(torch.float32) for x in pl]),
+        torch.cat([x.reshape(c, -1).to(torch.float32) for x in bl], dim=1),
+        m, beta=beta, inplace=inplace)
+    out, o = [], 0
+    for x in pl:
+        out.append(flat[o:o + x.numel()].reshape(x.shape))
+        o += x.numel()
+    return out
 
-    return _over_local_shards(local_eq8, params, buffers, mask)
+
+def _stale_aggregate_mesh(params, buffers, mask, *, beta, inplace=False):
+    """Fused Eq. (8) on DTensors: the kernel (``stale_aggregate_flat``)
+    once on each rank's local shards (params [N], buffers [C, N]).  With
+    ``inplace`` each param's local shard takes its slice back in place
+    (the gathered buffers are only read) and ``params`` is returned."""
+    if not inplace:
+        return _over_local_shards(
+            lambda pl, bl, m: [f.to(x.dtype) for f, x in zip(
+                _eq8_local(pl, bl, m, beta=beta, inplace=False), pl)],
+            params, buffers, mask)
+    p_leaves = tree_leaves(params)
+    for p in p_leaves:
+        sharding.check_even(p)
+    with torch.no_grad():
+        pl = [p.to_local() for p in p_leaves]
+        flat = _eq8_local(pl, [b.to_local() for b in tree_leaves(
+            _gather_cohorts(buffers))], _local(mask).to(torch.float32),
+            beta=beta, inplace=True)
+        for x, f in zip(pl, flat):
+            x.copy_(f)
+    return params
 
 
 def _masked_aggregate_mesh(params, buffers, mask):
@@ -255,10 +295,14 @@ def _cohort_view(x, j, sub, pod):
                               stride=sharding.contiguous_stride(shape))
 
 
-def _refresh_mesh(model, cfg, params, cohort_batches, buffers, refresh):
+def _refresh_mesh(model, cfg, params, cohort_batches, buffers, refresh, *,
+                  inplace=False):
     """Each pod's cohorts, one at a time on the (data, model) sub-mesh:
     fresh meta-gradients against ``params`` where ``refresh``, the old
-    buffer row elsewhere.  Returns the new buffers, placed as before."""
+    buffer row elsewhere.  Returns the new buffers, placed as before; with
+    ``inplace`` each row is written into this rank's own local rows of
+    ``buffers`` once its meta-gradient is made, and ``buffers`` is
+    returned."""
     from torch.distributed.tensor import DTensor
     mesh = _mesh_of(params)
     names = list(mesh.mesh_dim_names)
@@ -289,18 +333,27 @@ def _refresh_mesh(model, cfg, params, cohort_batches, buffers, refresh):
         cb = tree_map(lambda x: _cohort_view(x, j, sub, pod), batches)
         with sharding.use_mesh(sub, sharding.active_rules()):
             fresh = _meta_grad(model, cfg, sub_params, cb)
-        rows.append(tree_map(
+        row = tree_map(
             lambda f, b: torch.where(refresh[off[0] + j],
                                      f.to_local().to(b.dtype),
                                      b.to_local()[j]),
-            fresh, buffers))
+            fresh, buffers)
+        del fresh
+        if not inplace:
+            rows.append(row)
+            continue
+        with torch.no_grad():
+            for b, r in zip(tree_leaves(buffers), tree_leaves(row)):
+                b.to_local()[j].copy_(r)
+    if inplace:
+        return buffers
     return tree_map(lambda b, *r: DTensor.from_local(
         torch.stack(r), mesh, b.placements, run_check=False, shape=b.shape,
         stride=b.stride()), buffers, *rows)
 
 
 def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
-                        n_cohorts: int) -> Callable:
+                        n_cohorts: int, *, donate: bool = False) -> Callable:
     """Build the semi-synchronous round function.
 
     step(state, cohort_batches, mask, gen=None) -> (state, metrics)
@@ -309,6 +362,10 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
       A state of DTensors takes the mesh route (module docstring); its
       batches may be plain tensors (each rank holding all of them) or
       DTensors placed by ``train_batch_specs``.
+
+    With ``donate`` the step updates ``state`` in place and returns it:
+    after the call the caller's old state *is* the new one (module
+    docstring).
     """
     fl = cfg.fl
     fused_eq8 = uses_fused_eq8(optimizer, cfg)
@@ -324,9 +381,11 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
                 gnorm = zero
                 new_params = (
                     stale_aggregate_tree(state.params, state.buffers, mask,
-                                         beta=fl.beta) if mesh is None
+                                         beta=fl.beta, inplace=donate)
+                    if mesh is None
                     else _stale_aggregate_mesh(state.params, state.buffers,
-                                               mask, beta=fl.beta))
+                                               mask, beta=fl.beta,
+                                               inplace=donate))
                 new_opt = state.opt_state
             else:
                 agg = (masked_aggregate_tree(state.buffers, mask)
@@ -336,24 +395,20 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
                     agg, gnorm = clip_by_global_norm(agg, cfg.train.grad_clip)
                 else:
                     gnorm = zero
-                new_params, new_opt = optimizer.update(agg, state.opt_state,
-                                                       state.params, fl.beta)
+                new_params, new_opt = optimizer.update(
+                    agg, state.opt_state, state.params, fl.beta,
+                    inplace=donate)
                 # the f32 aggregate (4 B a param) is not held through the
                 # refresh
                 del agg
-                if mesh is not None:
+                if mesh is not None and not donate:
                     new_params = tree_map(_like, new_params, state.params)
 
             # -- 2) refresh buffers: scheduled cohorts (+ over-stale ones) --
             refresh = (mask > 0) | (state.staleness > fl.staleness_bound)
-            if mesh is None:
-                new_buffers = _refresh_plain(model, cfg, new_params,
-                                             cohort_batches, state.buffers,
-                                             refresh)
-            else:
-                new_buffers = _refresh_mesh(model, cfg, new_params,
-                                            cohort_batches, state.buffers,
-                                            refresh)
+            new_buffers = (_refresh_plain if mesh is None else _refresh_mesh)(
+                model, cfg, new_params, cohort_batches, state.buffers,
+                refresh, inplace=donate)
 
             # -- 3) staleness bookkeeping -------------------------------------
             new_staleness = torch.where(refresh, 0, state.staleness + 1)
@@ -363,6 +418,10 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
                 "participants": mask.sum(),
                 "max_staleness": new_staleness.max(),
             }
+            if donate:
+                write_into(state.staleness, new_staleness)
+                write_into(state.step, state.step + 1)
+                return state, metrics
             return SemiSyncState(new_params, new_opt, new_buffers,
                                  new_staleness.to(torch.int32),
                                  state.step + 1), metrics
@@ -370,19 +429,31 @@ def make_semi_sync_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
     return step_fn
 
 
-def _refresh_plain(model, cfg, params, cohort_batches, buffers, refresh):
+def _refresh_plain(model, cfg, params, cohort_batches, buffers, refresh, *,
+                   inplace=False):
     """Every cohort, one at a time: a fresh meta-gradient where
     ``refresh``, the old buffer row elsewhere.  (Batched together on one
     card, the cohorts' activations would be held at once: four cohorts of
-    mamba2-370m at batch 4 × 256 tokens ran an 80 GB H100 out of memory.)"""
+    mamba2-370m at batch 4 × 256 tokens ran an 80 GB H100 out of memory.)
+    With ``inplace`` each cohort's row is written into ``buffers``' own
+    slot, a leaf at a time, as soon as its meta-gradient is made (no
+    stacked copy), and ``buffers`` is returned."""
     rows = []
     for c in range(refresh.shape[0]):
         fresh = _meta_grad(model, cfg, params,
                            tree_map(lambda x: x[c], cohort_batches))
+        if inplace:
+            with torch.no_grad():
+                for f, b in zip(tree_leaves(fresh), tree_leaves(buffers)):
+                    b[c].copy_(torch.where(refresh[c], f.to(b.dtype), b[c]))
+            del fresh
+            continue
         rows.append([torch.where(refresh[c], f.to(b.dtype), b[c])
                      for f, b in zip(tree_leaves(fresh),
                                      tree_leaves(buffers))])
         del fresh
+    if inplace:
+        return buffers
     # stacked a leaf at a time, each leaf's rows dropped once stacked, so
     # the rows and the new buffers are not held whole at once
     out = []
@@ -398,6 +469,8 @@ def _refresh_plain(model, cfg, params, cohort_batches, buffers, refresh):
 # ---------------------------------------------------------------------------
 
 class TrainState(NamedTuple):
+    """A plain train step's state; after a donated step (``donate=True``)
+    the caller's state *is* the new one, updated in place."""
     params: Any
     opt_state: Any
     step: torch.Tensor
@@ -412,14 +485,18 @@ def init_train_state(model, gen: Optional[torch.Generator],
 
 
 def make_train_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
-                    *, perfed_step: bool = True) -> Callable:
+                    *, perfed_step: bool = True,
+                    donate: bool = False) -> Callable:
     """Single-cohort training step.
 
     ``perfed_step=True`` → the paper-faithful Per-FedAvg step (inner adapt +
     outer grad + HVP correction, Eq. 7).  ``False`` → plain LM gradient step
     (the FedAvg / standard baseline).  A state of DTensors runs on their
     mesh; both differentiate through ``torch.autograd``, as the
-    semi-synchronous step does.
+    semi-synchronous step does.  With ``donate`` the step writes the new
+    params, optimizer state and step into ``state``'s own tensors (after
+    the gradients are made) and returns ``state``: the caller's old state
+    *is* the new one.
     """
     fl = cfg.fl
     loss = _scalar_loss(model)
@@ -450,11 +527,16 @@ def make_train_step(model, cfg: ExperimentConfig, optimizer: Optimizer,
             gnorm = torch.zeros((), dtype=torch.float32,
                                 device=state.step.device)
         lr = fl.beta if perfed_step else cfg.train.learning_rate
+        metrics = {"loss": value, "grad_norm": gnorm}
+        if donate:
+            optimizer.update(grads, state.opt_state, state.params, lr,
+                             inplace=True)
+            write_into(state.step, state.step + 1)
+            return state, metrics
         new_params, new_opt = optimizer.update(grads, state.opt_state,
                                                state.params, lr)
         if mesh is not None:
             new_params = tree_map(_like, new_params, state.params)
-        return TrainState(new_params, new_opt, state.step + 1), {
-            "loss": value, "grad_norm": gnorm}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return step_fn

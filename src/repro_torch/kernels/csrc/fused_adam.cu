@@ -23,10 +23,18 @@
 // Design: a grid-stride elementwise pass, 4 consecutive elements a thread
 // per step with 16-byte (f32) or 8-byte (bf16) loads when every pointer is
 // aligned for them, else one element a thread.  The ragged tail (n not a
-// multiple of 4) is masked inside the kernel: no padding copy.  Outputs may
-// alias inputs (each element is read before it is written by the same
-// thread), but the port's caller always hands it fresh outputs.  The C
-// entry point validates its arguments and returns cudaGetLastError(); it
+// multiple of 4) is masked inside the kernel: no padding copy.
+//
+// In place (a donated step: po == p, mo == m, vo == v).  The out-of-place
+// instance declares p, m and v __restrict__, a promise that passing each
+// pointer twice would break.  So the C entry point launches a second
+// instance when the outputs are the inputs, kInPlace, whose p, m and v
+// carry no __restrict__ (g and the scalars keep theirs: the kernel never
+// writes them).  Each element is still read, then written, by one thread,
+// in the same order, so the two instances give the same bits; the
+// out-of-place instance's qualifiers come from Ptrs<false>, as before.
+// Outputs that alias inputs in any other way are refused.  The C entry
+// point validates its arguments and returns cudaGetLastError(); it
 // launches on the caller's stream and allocates nothing.
 
 #include <cstdint>
@@ -90,12 +98,22 @@ __device__ __forceinline__ void adam1(float& p, float& m, float& v, float g,
   p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr, mh), den));
 }
 
-template <typename TP, typename TG, int V>
+// the read pointers of p, m and v: __restrict__ out of place; plain in
+// place, where each is also the pointer written
+template <typename T, bool kInPlace> struct In {
+  using type = const T* __restrict__;
+};
+template <typename T> struct In<T, true> {
+  using type = const T*;
+};
+
+template <typename TP, typename TG, int V, bool kInPlace>
 __global__ void __launch_bounds__(kThreads)
-fused_adam_kernel(const TP* __restrict__ p, const float* __restrict__ m,
-                  const float* __restrict__ v, const TG* __restrict__ g,
-                  TP* po, float* mo, float* vo, int64_t n,
-                  const float* __restrict__ scal, Hyper h) {
+fused_adam_kernel(typename In<TP, kInPlace>::type p,
+                  typename In<float, kInPlace>::type m,
+                  typename In<float, kInPlace>::type v,
+                  const TG* __restrict__ g, TP* po, float* mo, float* vo,
+                  int64_t n, const float* __restrict__ scal, Hyper h) {
   const float lr = scal[0], bc1 = scal[1], bc2 = scal[2];
   const int64_t groups = n / V;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -125,10 +143,10 @@ fused_adam_kernel(const TP* __restrict__ p, const float* __restrict__ m,
   }
 }
 
-template <typename TP, typename TG>
-void launch(const void* p, const float* m, const float* v, const void* g,
-            void* po, float* mo, float* vo, int64_t n, const float* scal,
-            Hyper h, int vec, cudaStream_t s) {
+template <typename TP, typename TG, bool kInPlace>
+void launch_as(const void* p, const float* m, const float* v, const void* g,
+               void* po, float* mo, float* vo, int64_t n, const float* scal,
+               Hyper h, int vec, cudaStream_t s) {
   const int64_t groups = n / vec;
   int64_t blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;     // grid-stride beyond this
@@ -137,11 +155,23 @@ void launch(const void* p, const float* m, const float* v, const void* g,
   const TG* gg = static_cast<const TG*>(g);
   TP* pop = static_cast<TP*>(po);
   if (vec == 4)
-    fused_adam_kernel<TP, TG, 4><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                   s>>>(pp, m, v, gg, pop, mo, vo, n, scal, h);
+    fused_adam_kernel<TP, TG, 4, kInPlace>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            pp, m, v, gg, pop, mo, vo, n, scal, h);
   else
-    fused_adam_kernel<TP, TG, 1><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                   s>>>(pp, m, v, gg, pop, mo, vo, n, scal, h);
+    fused_adam_kernel<TP, TG, 1, kInPlace>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            pp, m, v, gg, pop, mo, vo, n, scal, h);
+}
+
+template <typename TP, typename TG>
+void launch(const void* p, const float* m, const float* v, const void* g,
+            void* po, float* mo, float* vo, int64_t n, const float* scal,
+            Hyper h, int vec, bool in_place, cudaStream_t s) {
+  if (in_place)
+    launch_as<TP, TG, true>(p, m, v, g, po, mo, vo, n, scal, h, vec, s);
+  else
+    launch_as<TP, TG, false>(p, m, v, g, po, mo, vo, n, scal, h, vec, s);
 }
 
 }  // namespace
@@ -149,25 +179,32 @@ void launch(const void* p, const float* m, const float* v, const void* g,
 // p [n] (f32, or bf16 when p_bf16), m/v [n] f32, g [n] (f32, or bf16 when
 // g_bf16), outputs po/mo/vo of the same types; scal = {lr, bc1, bc2} f32 on
 // the device; omb1 = 1 - b1 and omb2 = 1 - b2 as the caller rounds them.
-// vec is 4 (every pointer aligned for 4-element loads) or 1.  Launches on
-// `stream` and returns cudaGetLastError().
+// The outputs are either the inputs themselves (po == p, mo == m, vo == v:
+// in place) or overlap no input.  vec is 4 (every pointer aligned for
+// 4-element loads) or 1.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int fused_adam(const void* p, const float* m, const float* v,
                           const void* g, void* po, float* mo, float* vo,
                           int64_t n, const float* scal, float b1, float omb1,
                           float b2, float omb2, float eps, int p_bf16,
                           int g_bf16, int vec, void* stream) {
-  if (n <= 0 || (vec != 1 && vec != 4))
+  const bool in_place = po == p && mo == m && vo == v;
+  if (n <= 0 || (vec != 1 && vec != 4) ||
+      (!in_place && (po == p || mo == m || vo == v)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Hyper h{b1, omb1, b2, omb2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p_bf16 && g_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(p, m, v, g, po, mo, vo, n, scal, h,
-                                         vec, s);
+                                         vec, in_place, s);
   else if (p_bf16)
-    launch<__nv_bfloat16, float>(p, m, v, g, po, mo, vo, n, scal, h, vec, s);
+    launch<__nv_bfloat16, float>(p, m, v, g, po, mo, vo, n, scal, h, vec,
+                                 in_place, s);
   else if (g_bf16)
-    launch<float, __nv_bfloat16>(p, m, v, g, po, mo, vo, n, scal, h, vec, s);
+    launch<float, __nv_bfloat16>(p, m, v, g, po, mo, vo, n, scal, h, vec,
+                                 in_place, s);
   else
-    launch<float, float>(p, m, v, g, po, mo, vo, n, scal, h, vec, s);
+    launch<float, float>(p, m, v, g, po, mo, vo, n, scal, h, vec, in_place,
+                         s);
   return static_cast<int>(cudaGetLastError());
 }

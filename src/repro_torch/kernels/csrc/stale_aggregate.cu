@@ -55,6 +55,15 @@
 //   mamba2-370m's N = 419,825,152, C = 4 it streams at ~3.05 TB/s on an
 //   H100 at 700 W, ~3% under the first design: at V = 4 its 124 registers
 //   leave 512 threads an SM, one group's rows in flight each.
+// * In place (a donated step: out == p).  The instance above declares p
+//   and out __restrict__, a promise that passing one pointer twice would
+//   break (the compiler may then move p's loads past out's stores).  So
+//   the C entry point launches a second instance when out == p, kInPlace,
+//   whose p and out carry no __restrict__ and whose p is read by a plain
+//   load rather than through the read-only (non-coherent) path.  Each
+//   element is still read, then written, by one thread, in the same order,
+//   so the two instances give the same bits; the out-of-place instance's
+//   machine code is the one it was (its qualifiers come from Ptrs<false>).
 // * The C entry point validates its arguments, launches on the caller's
 //   stream, allocates nothing and returns cudaGetLastError() so the Python
 //   wrapper can raise on a refused launch.
@@ -73,18 +82,36 @@ __host__ __device__ constexpr int max_threads(int V) {
   return V == 1 ? 512 : 256;
 }
 
-template <int V>
+// V floats from ptr: through the read-only path, or (kCoherent: an array
+// the kernel also writes) by a plain load
+template <int V, bool kCoherent = false>
 __device__ __forceinline__ void load_vec(const float* ptr, float (&v)[V]) {
   if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(ptr));
+    float4 t;
+    if constexpr (kCoherent) t = *reinterpret_cast<const float4*>(ptr);
+    else t = __ldg(reinterpret_cast<const float4*>(ptr));
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else if constexpr (V == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(ptr));
+    float2 t;
+    if constexpr (kCoherent) t = *reinterpret_cast<const float2*>(ptr);
+    else t = __ldg(reinterpret_cast<const float2*>(ptr));
     v[0] = t.x; v[1] = t.y;
   } else {
-    v[0] = __ldg(ptr);
+    if constexpr (kCoherent) v[0] = *ptr;
+    else v[0] = __ldg(ptr);
   }
 }
+
+// p's and out's pointer types: __restrict__ out of place; plain in place,
+// where they are one pointer
+template <bool kInPlace> struct Ptrs {
+  using In = const float* __restrict__;
+  using Out = float* __restrict__;
+};
+template <> struct Ptrs<true> {
+  using In = const float*;
+  using Out = float*;
+};
 
 template <int V>
 __device__ __forceinline__ void store_vec(float* ptr, const float (&v)[V]) {
@@ -97,13 +124,13 @@ __device__ __forceinline__ void store_vec(float* ptr, const float (&v)[V]) {
   }
 }
 
-template <int V, int U>
+template <int V, int U, bool kInPlace>
 __global__ void __launch_bounds__(max_threads(V), kCtasPerSm)
-stale_aggregate_kernel(const float* __restrict__ p,
+stale_aggregate_kernel(typename Ptrs<kInPlace>::In p,
                        const float* __restrict__ buf,
                        const float* __restrict__ mask,
-                       float* __restrict__ out, int64_t n, int C, float beta,
-                       int64_t per) {
+                       typename Ptrs<kInPlace>::Out out, int64_t n, int C,
+                       float beta, int64_t per) {
   constexpr int R = V == 4 ? 8 : 16;    // rows loaded before any FMA
   constexpr int kTail = V == 1 ? 4 : 8;  // rows a batch of the tail
   __shared__ float s_scale;
@@ -129,7 +156,7 @@ stale_aggregate_kernel(const float* __restrict__ p,
       col[u] = g * V;
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[u][v] = 0.0f;
-      if (live[u]) load_vec<V>(p + col[u], o[u]);
+      if (live[u]) load_vec<V, kInPlace>(p + col[u], o[u]);
     }
     int c0 = 0;
     for (; c0 + R <= C; c0 += R) {      // whole batches of R rows
@@ -241,9 +268,36 @@ extern "C" int stale_aggregate_plan(int64_t n, int vec, int64_t* out) {
   return 0;
 }
 
+namespace {
+
+template <bool kInPlace>
+void launch(const float* p, const float* buf, const float* mask, float* out,
+            int64_t n, int C, float beta, int vec, const Plan& pl,
+            cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(pl.ctas));
+  const dim3 block(static_cast<unsigned>(pl.threads));
+  switch (vec) {
+    case 4:
+      stale_aggregate_kernel<4, 1, kInPlace><<<grid, block, 0, s>>>(
+          p, buf, mask, out, n, C, beta, pl.per);
+      break;
+    case 2:
+      stale_aggregate_kernel<2, 1, kInPlace><<<grid, block, 0, s>>>(
+          p, buf, mask, out, n, C, beta, pl.per);
+      break;
+    default:
+      stale_aggregate_kernel<1, 2, kInPlace><<<grid, block, 0, s>>>(
+          p, buf, mask, out, n, C, beta, pl.per);
+  }
+}
+
+}  // namespace
+
 // p [n], buf [C, n], mask [C], out [n]: contiguous f32 on the current device.
-// vec is 1, 2 or 4 and must divide n; every pointer must be 4*vec-byte
-// aligned.  Launches on `stream` and returns cudaGetLastError().
+// out is either p itself (in place: the kInPlace instance) or overlaps none
+// of p, buf and mask.  vec is 1, 2 or 4 and must divide n; every pointer
+// must be 4*vec-byte aligned.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int stale_aggregate_f32(const float* p, const float* buf,
                                    const float* mask, float* out, int64_t n,
                                    int C, float beta, int vec, void* stream) {
@@ -256,21 +310,10 @@ extern "C" int stale_aggregate_f32(const float* p, const float* buf,
   const int err = sm_count(&sms);
   if (err != 0) return err;
   const Plan pl = make_plan(n / vec, vec, sms);
-  const dim3 grid(static_cast<unsigned>(pl.ctas));
-  const dim3 block(static_cast<unsigned>(pl.threads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 4:
-      stale_aggregate_kernel<4, 1><<<grid, block, 0, s>>>(
-          p, buf, mask, out, n, C, beta, pl.per);
-      break;
-    case 2:
-      stale_aggregate_kernel<2, 1><<<grid, block, 0, s>>>(
-          p, buf, mask, out, n, C, beta, pl.per);
-      break;
-    default:
-      stale_aggregate_kernel<1, 2><<<grid, block, 0, s>>>(
-          p, buf, mask, out, n, C, beta, pl.per);
-  }
+  if (out == p)
+    launch<true>(p, buf, mask, out, n, C, beta, vec, pl, s);
+  else
+    launch<false>(p, buf, mask, out, n, C, beta, vec, pl, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,14 +13,19 @@ note gives the design.
   launches.
 * ``fused_adam_tree``  — one ``fused_adam_flat`` per leaf.  On a tree of
   DTensors (the server Adam on a mesh) each rank runs it once a leaf on
-  its local shards through ``local_map``: Adam is elementwise, and p, m,
-  v and g of a leaf are placed alike (m and v are made ``zeros_like`` p,
-  the aggregate is placed like the params), so the local shards line up.
+  its local shards: Adam is elementwise, and p, m, v and g of a leaf are
+  placed alike (m and v are made ``zeros_like`` p, the aggregate is placed
+  like the params), so the local shards line up.
 
 lr and the bias corrections ``bc = 1 − b^t`` are computed in f32 on the
 tensors' device (``t`` may be a device tensor) and reach the kernel as a
-3-float device tensor, so a step never syncs with the host.  Every call
-writes new tensors: the inputs are never updated in place.
+3-float device tensor, so a step never syncs with the host.  By default a
+call writes new tensors and leaves its inputs as they were.  With
+``inplace=True`` (a donated step) it writes p, m and v into the inputs
+themselves and returns them: on the card by the kernel's in-place
+instance (outputs equal to inputs, so p, m and v are not declared
+``__restrict__``), on the CPU by ``copy_`` from the plain version.  g is
+never written.
 """
 from __future__ import annotations
 
@@ -107,20 +112,26 @@ def _vector_width(*tensors: torch.Tensor) -> int:
 
 def fused_adam_flat(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     g: torch.Tensor, *, lr, t, b1: float = 0.9,
-                    b2: float = 0.95, eps: float = 1e-8
+                    b2: float = 0.95, eps: float = 1e-8, inplace: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Update one flat tensor.  p [N] (f32 or bf16 on the card, any float
     type on the CPU), m/v [N] f32, g [N] (f32 or bf16 on the card).
-    Returns new (p, m, v); p keeps its dtype."""
+    Returns new (p, m, v), or with ``inplace`` the inputs p, m and v
+    themselves, updated; p keeps its dtype."""
     _check(p, m, v, g)
     return _update(p, m, v, g, adam_scalars(lr, t, b1, b2, p.device),
-                   b1=b1, b2=b2, eps=eps)
+                   b1=b1, b2=b2, eps=eps, inplace=inplace)
 
 
-def _update(p, m, v, g, scal, *, b1, b2, eps):
+def _update(p, m, v, g, scal, *, b1, b2, eps, inplace=False):
     global LAUNCHES
     if p.device.type == "cpu":
-        return fused_adam_plain(p, m, v, g, scal, b1=b1, b2=b2, eps=eps)
+        out = fused_adam_plain(p, m, v, g, scal, b1=b1, b2=b2, eps=eps)
+        if not inplace:
+            return out
+        for x, y in zip((p, m, v), out):
+            x.copy_(y)
+        return p, m, v
     if p.device.type != "cuda":
         raise ValueError(f"fused_adam: unsupported device {p.device}")
     for name, x in (("p", p), ("g", g)):
@@ -130,14 +141,19 @@ def _update(p, m, v, g, scal, *, b1, b2, eps):
     for name, x in (("p", p), ("m", m), ("v", v), ("g", g)):
         if not x.is_contiguous():
             raise ValueError(f"fused_adam: {name} must be contiguous")
-    new_p, new_m, new_v = (torch.empty_like(p), torch.empty_like(m),
-                           torch.empty_like(v))
+    if inplace:
+        new_p, new_m, new_v = p, m, v
+    else:
+        new_p, new_m, new_v = (torch.empty_like(p), torch.empty_like(m),
+                               torch.empty_like(v))
     n = p.shape[0]
     if n == 0:
         return new_p, new_m, new_v
     if _FN is None:
         build()
-    vec = _vector_width(p, m, v, g, new_p, new_m, new_v)
+    # in place the outputs are the inputs: the alignment counts each once
+    vec = _vector_width(p, m, v, g, *(() if inplace else
+                                      (new_p, new_m, new_v)))
     with torch.cuda.device(p.device):
         err = _FN(p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
                   new_p.data_ptr(), new_m.data_ptr(), new_v.data_ptr(), n,
@@ -152,36 +168,55 @@ def _update(p, m, v, g, scal, *, b1, b2, eps):
     return new_p, new_m, new_v
 
 
+def _flat_views(p, m, v, g, inplace):
+    """A leaf's p, m, v and g as [N]; in place p, m and v must be
+    contiguous, so that the flat views are the leaves' own storage."""
+    if inplace and not all(x.is_contiguous() for x in (p, m, v)):
+        raise ValueError("fused_adam: in place, p, m and v must be "
+                         "contiguous")
+    flat = (p.reshape(-1), m.reshape(-1), v.reshape(-1), g.reshape(-1))
+    _check(*flat)
+    return flat
+
+
 def fused_adam_tree(params, m, v, grads, *, lr, t, b1: float = 0.9,
-                    b2: float = 0.95, eps: float = 1e-8):
+                    b2: float = 0.95, eps: float = 1e-8,
+                    inplace: bool = False):
     """Tree fused Adam: ``fused_adam_flat`` leaf by leaf (one launch per
-    leaf on the card).  Returns new (params, m, v) trees; g is read in its
-    own dtype.  DTensor leaves take ``_fused_adam_mesh``."""
+    leaf on the card).  Returns new (params, m, v) trees, or with
+    ``inplace`` the trees given, every leaf updated in place; g is read in
+    its own dtype.  DTensor leaves take ``_fused_adam_mesh``."""
     from torch.distributed.tensor import DTensor
     if isinstance(tree_leaves(params)[0], DTensor):
         return _fused_adam_mesh(params, m, v, grads, lr=lr, t=t, b1=b1,
-                                b2=b2, eps=eps)
+                                b2=b2, eps=eps, inplace=inplace)
     scal = None
 
     def upd(p, mi, vi, g):
         nonlocal scal
-        flat = (p.reshape(-1), mi.reshape(-1), vi.reshape(-1), g.reshape(-1))
-        _check(*flat)
+        flat = _flat_views(p, mi, vi, g, inplace)
         if scal is None:            # one [lr, bc1, bc2] for every leaf
             scal = adam_scalars(lr, t, b1, b2, p.device)
-        res = _update(*flat, scal, b1=b1, b2=b2, eps=eps)
+        res = _update(*flat, scal, b1=b1, b2=b2, eps=eps, inplace=inplace)
         return tuple(r.reshape(p.shape) for r in res)
 
+    if inplace:
+        for leaf in zip(*(tree_leaves(x) for x in (params, m, v, grads))):
+            upd(*leaf)
+        return params, m, v
     # tuples are leaves to tree_map: one (p, m, v) triple per leaf
     trio = tree_map(upd, params, m, v, grads)
     return tuple(tree_map(lambda r, i=i: r[i], trio) for i in range(3))
 
 
-def _fused_adam_mesh(params, m, v, grads, *, lr, t, b1, b2, eps):
+def _fused_adam_mesh(params, m, v, grads, *, lr, t, b1, b2, eps,
+                     inplace=False):
     """``fused_adam_tree`` on DTensors: one ``[lr, bc1, bc2]`` from the
     replicated ``t``, then the kernel once a leaf on each rank's local
-    shards through ``local_map`` (no autograd: the update is first order).
-    Every leaf's p, m, v and g must share placements and split evenly."""
+    shards through ``local_map`` (no autograd: the update is first order),
+    or with ``inplace`` into each DTensor's own local shard, through
+    ``to_local()``.  Every leaf's p, m, v and g must share placements and
+    split evenly."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
 
@@ -200,6 +235,13 @@ def _fused_adam_mesh(params, m, v, grads, *, lr, t, b1, b2, eps):
         t = t.to_local()
     p0 = leaves[0][0]
     scal = adam_scalars(lr, t, b1, b2, p0.to_local().device)
+    if inplace:
+        with torch.no_grad():
+            for leaf in zip(*leaves):
+                local = [x.to_local() for x in leaf]
+                _update(*_flat_views(*local, True), scal, b1=b1, b2=b2,
+                        eps=eps, inplace=True)
+        return params, m, v
 
     def local_adam(pl, ml, vl, gl):
         out = []

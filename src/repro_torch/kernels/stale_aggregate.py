@@ -14,6 +14,10 @@ the loads of 8–16 buffer rows in flight before it adds them in c order;
 the source's header note gives the design.  For a tensor on the CPU the
 wrapper runs ``stale_aggregate_plain``, the same c-ordered f32 loop in
 plain torch; for a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+With ``inplace=True`` (a donated step) the result is written into
+``params`` itself: on the card by the kernel's in-place instance (whose p
+and out are one pointer, so neither is declared ``__restrict__``), on the
+CPU by ``copy_`` from the plain version.
 
 On top sit the tree entry points the protocol code shares:
 
@@ -114,27 +118,33 @@ def vector_width(n: int, *tensors: torch.Tensor) -> int:
 
 
 def stale_aggregate_flat(params: torch.Tensor, buffers: torch.Tensor,
-                         mask: torch.Tensor, *, beta) -> torch.Tensor:
+                         mask: torch.Tensor, *, beta,
+                         inplace: bool = False) -> torch.Tensor:
     """params [N], buffers [C, N], mask [C] (all f32, contiguous, on one
-    device) → updated params [N].  CPU tensors take the plain version; CUDA
-    tensors launch the Hopper kernel on the current stream (no host sync)."""
+    device) → updated params [N]: a new tensor, or ``params`` itself
+    written in place with ``inplace``.  CPU tensors take the plain version;
+    CUDA tensors launch the Hopper kernel on the current stream (no host
+    sync)."""
     global LAUNCHES
     _check(params, buffers, mask)
     if params.device.type == "cpu":
-        return stale_aggregate_plain(params, buffers, mask, beta=beta)
+        out = stale_aggregate_plain(params, buffers, mask, beta=beta)
+        return params.copy_(out) if inplace else out
     if params.device.type != "cuda":
         raise ValueError(f"stale_aggregate: unsupported device "
                          f"{params.device}")
-    out = torch.empty_like(params)
+    out = params if inplace else torch.empty_like(params)
     n, c = params.shape[0], buffers.shape[0]
     if n == 0:
         return out
     if _FN is None:
         build()
+    # in place, out is params: the alignment counts it once
+    aligned = (params, buffers) if inplace else (params, buffers, out)
     with torch.cuda.device(params.device):
         err = _FN(params.data_ptr(), buffers.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), n, c, float(beta),
-                  vector_width(n, params, buffers, out),
+                  vector_width(n, *aligned),
                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"stale_aggregate kernel launch failed with CUDA "
@@ -157,11 +167,13 @@ def _check_backend(backend: str) -> None:
 
 def stale_aggregate_update(p_flat: torch.Tensor, buf: torch.Tensor,
                            mask: torch.Tensor, *, beta,
-                           backend: str = "auto") -> torch.Tensor:
-    """Flat-buffer Eq. (8):  p − (β/A) Σ_c mask_c·buf_c,  A = max(Σ mask, 1)."""
+                           backend: str = "auto",
+                           inplace: bool = False) -> torch.Tensor:
+    """Flat-buffer Eq. (8):  p − (β/A) Σ_c mask_c·buf_c,  A = max(Σ mask, 1)
+    (into ``p_flat`` itself with ``inplace``)."""
     _check_backend(backend)
     return stale_aggregate_flat(p_flat, buf, mask.to(torch.float32),
-                                beta=beta)
+                                beta=beta, inplace=inplace)
 
 
 def _stack_leafwise(payloads):
@@ -202,14 +214,18 @@ def masked_aggregate_tree(payloads, mask: torch.Tensor):
 
 
 def stale_aggregate_tree(params, payloads, mask: torch.Tensor, *, beta,
-                         backend: str = "auto"):
+                         backend: str = "auto", inplace: bool = False):
     """Fused Eq. (8) on trees:  w ← w − (β/A) Σ_c mask_c · payload_c,
     A = max(Σ mask, 1).  Returns a tree shaped/typed like ``params``.
 
     A staleness-discounted update (server ``staleness_discount`` < 1) is the
     same call with ``mask_c = λ^{τ_c} · A / Σ λ^{τ}``.  Params and payloads
     flatten through the cached ``TreeFlattener`` into the one ``[C, N]``
-    buffer the kernel reads.
+    buffer the kernel reads, and a flat f32 copy of the params (both
+    temporaries, as the reference's concatenations are).  With ``inplace``
+    the kernel updates that flat copy in place, and each of ``params``'
+    own leaves takes its slice back, cast to the leaf's dtype: the tree
+    returned is ``params``.
     """
     _check_backend(backend)
     flat = TreeFlattener.for_tree(params)
@@ -218,5 +234,9 @@ def stale_aggregate_tree(params, payloads, mask: torch.Tensor, *, beta,
         buf = torch.stack([flat.flatten(g) for g in payloads])
     else:
         buf = flat.flatten_stacked(payloads)
-    out = stale_aggregate_update(p, buf, mask, beta=beta)
-    return flat.unflatten(out)
+    out = stale_aggregate_update(p, buf, mask, beta=beta, inplace=inplace)
+    if not inplace:
+        return flat.unflatten(out)
+    del buf
+    flat.unflatten_into(params, out)
+    return params

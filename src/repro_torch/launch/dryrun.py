@@ -13,8 +13,11 @@ meaning is the same:
     ``memory.param_bytes`` the params' part;
   * ``memory.peak_bytes``: the most local bytes live at once during the
     step, arguments included (``op_analysis``'s storage liveness), and
-    ``memory.temp_bytes``: the peak less the argument and output bytes,
-    floored at 0 — where XLA reports its buffer assignment's;
+    ``memory.temp_bytes``: the peak less the argument bytes and the output
+    bytes that do not alias an argument, floored at 0 — where XLA reports
+    its buffer assignment's; ``memory.alias_bytes``: the output bytes
+    written in place into their arguments (XLA's
+    ``alias_size_in_bytes``);
   * ``flops``, ``bytes_accessed`` and ``collectives`` (bytes and counts by
     kind, bytes by mesh axis) from ``op_analysis``;
   * ``roofline``: ``roofline.roofline_report`` on H100 rates.
@@ -23,7 +26,12 @@ Compile times are absent, not 0: eager torch compiles nothing.  The step
 runs on ``meta`` tensors, not under ``FakeTensorMode``: DTensor's sharding
 propagation reads a tensor value for some strided shards, which a fake
 tensor refuses.  ``--opt no_remat`` sets ``cfg.remat=False`` (no
-activation checkpointing per layer), which raises the peak.
+activation checkpointing per layer), which raises the peak.  ``--opt
+donate`` is the reference's ``donate_argnums``: a train case's step
+updates its state in place (``donate=True``), and a decode case writes
+its argument cache in place where the undonated one writes a copy
+(``specs.build_case``); the outputs then alias the arguments, and the
+peak holds one state, not two.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi_6b \\
         --shape train_4k --mesh both --out artifacts/dryrun
@@ -46,7 +54,8 @@ from repro_torch.config import FLConfig
 from repro_torch.configs import CONFIGS, SHAPES, get_config, get_shape
 from repro_torch.core import semi_sync
 from repro_torch.launch.mesh import fake_world, make_production_mesh
-from repro_torch.launch.op_analysis import analyze, local_bytes
+from repro_torch.launch.op_analysis import (aliased_bytes, analyze,
+                                           local_bytes)
 from repro_torch.launch.roofline import roofline_report
 from repro_torch.launch.specs import arch_rules, build_case
 
@@ -57,11 +66,6 @@ ASSIGNED = [a for a in CONFIGS if a not in ("mnist_dnn", "lenet5",
 
 OPT_LEVERS = ("attn_bf16", "moe_ep", "first_order", "no_remat", "cache_rep",
               "tp_only", "dp_only", "donate")
-# the reference's levers that mean nothing for an eager torch step
-NO_MEANING = {
-    "donate": "eager torch has no buffer donation: a step's outputs are "
-              "new tensors",
-}
 
 # every param logical axis — blanked out by the dp_only lever
 _PARAM_AXES = ("embed", "heads", "kv_heads", "ffn", "experts", "vocab",
@@ -94,14 +98,15 @@ def _place(out, pl, mesh):
 def lower(cfg, shape, mesh, *, rules: sharding.AxisRules,
           moe_impl: str = "gather", fl: Optional[FLConfig] = None,
           semi_sync_cohorts: Optional[int] = None, perfed_step: bool = True,
-          cache_policy: str = "auto") -> Dict[str, Any]:
+          cache_policy: str = "auto", donate: bool = False
+          ) -> Dict[str, Any]:
     """One case on ``mesh`` (its process group already initialised):
     the record's counted fields."""
     with sharding.use_mesh(mesh, rules):
         case = build_case(cfg, shape, mesh, moe_impl=moe_impl, fl=fl,
                           semi_sync_cohorts=semi_sync_cohorts,
                           perfed_step=perfed_step, rules=rules,
-                          cache_policy=cache_policy)
+                          cache_policy=cache_policy, donate=donate)
         args = sharding.distribute(case.args, case.in_shardings, mesh)
 
         def step(*a):
@@ -114,12 +119,14 @@ def lower(cfg, shape, mesh, *, rules: sharding.AxisRules,
     for v in mesh.shape:
         n_devices *= v
     arg_b, out_b = local_bytes(args), local_bytes(out)
+    alias_b = aliased_bytes(out, args)
     peak = counted.pop("peak_bytes")
     rec = {"name": case.name, "n_devices": n_devices,
            "mesh_shape": sharding.mesh_shape(mesh),
            "memory": {"argument_bytes": arg_b, "output_bytes": out_b,
+                      "alias_bytes": alias_b,
                       "param_bytes": local_bytes(params),
-                      "temp_bytes": max(peak - arg_b - out_b, 0),
+                      "temp_bytes": max(peak - arg_b - (out_b - alias_b), 0),
                       "peak_bytes": peak},
            **counted}
     rec["roofline"] = roofline_report(rec)
@@ -173,7 +180,7 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool,
                 cfg, shape, mesh, rules=rules, moe_impl=moe_impl, fl=fl,
                 semi_sync_cohorts=cohorts, perfed_step=perfed_step,
                 cache_policy="replicate" if "cache_rep" in opts
-                else "auto"))
+                else "auto", donate="donate" in opts))
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
         rec["status"] = "fail"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -213,12 +220,9 @@ def main(argv=None):
     ap.add_argument("--opt", action="append", default=[],
                     choices=list(OPT_LEVERS),
                     help="perf levers (repeatable): attn_bf16 moe_ep "
-                         "first_order no_remat cache_rep tp_only dp_only")
+                         "first_order no_remat cache_rep tp_only dp_only "
+                         "donate")
     args = ap.parse_args(argv)
-    for lever in args.opt:
-        if lever in NO_MEANING:
-            ap.error(f"--opt {lever} has no meaning here: "
-                     f"{NO_MEANING[lever]}")
 
     archs = ASSIGNED if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]

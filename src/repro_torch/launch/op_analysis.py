@@ -169,15 +169,33 @@ class OpCounter(TorchDispatchMode):
         }
 
 
-def local_bytes(tree) -> int:
-    """Bytes this rank holds of a tree of DTensors and tensors (its local
-    shards)."""
+def _local_tensors(tree):
+    """The tensors of a tree, each DTensor as this rank's local shard."""
     from torch.distributed.tensor import DTensor
-    total = 0
     for t in tree_flatten(tree)[0]:
         if isinstance(t, DTensor):
             t = t.to_local()
         if isinstance(t, torch.Tensor):
+            yield t
+
+
+def local_bytes(tree) -> int:
+    """Bytes this rank holds of a tree of DTensors and tensors (its local
+    shards)."""
+    return sum(t.numel() * t.element_size() for t in _local_tensors(tree))
+
+
+def aliased_bytes(out, args) -> int:
+    """Bytes of this rank's local output tensors that lie in an argument's
+    storage: outputs written in place into their arguments, as XLA's
+    ``alias_size_in_bytes`` counts the donated buffers its outputs reuse.
+    Each output counts once, by its own bytes (as ``local_bytes``)."""
+    arg_st = {t.untyped_storage()._cdata for t in _local_tensors(args)}
+    seen, total = set(), 0
+    for t in _local_tensors(out):
+        key = (t.untyped_storage()._cdata, t.storage_offset(), t.numel())
+        if key[0] in arg_st and key not in seen:
+            seen.add(key)
             total += t.numel() * t.element_size()
     return total
 

@@ -242,9 +242,17 @@ def build_case(model_cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                perfed_step: bool = True,
                cache_policy: str = "auto",
                rules: Optional[sharding.AxisRules] = None,
-               seed: int = 0) -> LowerCase:
+               seed: int = 0, donate: bool = False) -> LowerCase:
     """Assemble one (arch × shape × mesh) case.  Params are abstract, so
-    ``seed`` draws nothing; it is kept for the reference's signature."""
+    ``seed`` draws nothing; it is kept for the reference's signature.
+
+    ``donate`` means what the reference's ``donate_argnums`` means for the
+    case: a train step updates its state (argument 0) in place and returns
+    it (``donate=True`` of the steps); a decode step writes its cache
+    (argument 1) in place, as the port's ring always does.  Undonated, the
+    decode step first copies the cache, so that, as in the reference, its
+    argument stays as it was.  Prefill donates nothing that any output
+    could take."""
     fl = fl or FLConfig()
     train = train or TrainConfig(seq_len=shape.seq_len,
                                  global_batch_size=shape.global_batch)
@@ -265,7 +273,8 @@ def build_case(model_cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         optimizer = make_optimizer("sgd")   # Alg.-1 server = β-SGD (faithful)
         if semi_sync_cohorts and semi_sync_cohorts > 1:
             step = semi_sync.make_semi_sync_step(model, exp, optimizer,
-                                                 semi_sync_cohorts)
+                                                 semi_sync_cohorts,
+                                                 donate=donate)
             state_abs = semi_sync.init_state(model, None, optimizer,
                                              semi_sync_cohorts, device=META)
             batch_abs, batch_sh = train_batch_specs(
@@ -279,7 +288,8 @@ def build_case(model_cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             name = f"{cfg.name}:{shape.name}:semi_sync"
         else:
             step = semi_sync.make_train_step(model, exp, optimizer,
-                                             perfed_step=perfed_step)
+                                             perfed_step=perfed_step,
+                                             donate=donate)
             state_abs = semi_sync.init_train_state(model, None, optimizer,
                                                    device=META)
             batch_abs, batch_sh = train_batch_specs(cfg, shape, mesh,
@@ -330,6 +340,8 @@ def build_case(model_cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     def decode_fn(params, cache, tokens, pos, img=None):
         kw = {"window": window} if window is not None else {}
         pos = pos.to_local()            # replicated: the same on every rank
+        if not donate:
+            cache = tree_map(_copy_local, cache)
         if cfg.family == "vlm":
             kw["image_embeds"] = img
         return model.decode_step(params, cache, tokens, pos, **kw)
@@ -345,6 +357,17 @@ def build_case(model_cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         in_sh.append(_spec(mesh, bdim))
     return LowerCase(f"{cfg.name}:{shape.name}:decode", decode_fn,
                      tuple(args), tuple(in_sh), (rep, csh), meta)
+
+
+def _copy_local(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` laid out as ``x`` is: a DTensor's local shard cloned
+    (DTensor's own ``clone`` may gather a cache leaf first)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x.clone()
+    return DTensor.from_local(x.to_local().clone(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def _cache_len(cfg: ModelConfig, shape: ShapeConfig) -> int:

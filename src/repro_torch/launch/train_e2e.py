@@ -90,12 +90,15 @@ def round_batches(corpora, k: int, *, batch: int, seq: int, device,
 
 def train_rounds(model, cfg: ExperimentConfig, opt, state, *, pi: np.ndarray,
                  corpora, rounds: range, batch: int, seq: int, device,
-                 log_every: Optional[int] = None):
+                 log_every: Optional[int] = None, donate: bool = False):
     """Run the semi-synchronous rounds ``rounds`` (indices into the Alg.-2
     schedule ``pi``) from ``state``.  Returns (state, one record per round:
     mask, seconds, metrics).  An audio model's batches carry its K
-    codebooks."""
-    step_fn = semi_sync.make_semi_sync_step(model, cfg, opt, len(corpora))
+    codebooks.  With ``donate`` every round updates ``state`` in place
+    (``make_semi_sync_step(..., donate=True)``) and the state returned is
+    ``state`` itself."""
+    step_fn = semi_sync.make_semi_sync_step(model, cfg, opt, len(corpora),
+                                            donate=donate)
     codebooks = model.cfg.num_audio_codebooks
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))

@@ -263,6 +263,21 @@ def constrain_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return redistribute(x, like.placements)
 
 
+def write_into(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``src`` written into ``dst`` in place (a donated step's update),
+    cast to ``dst``'s dtype as ``copy_`` casts; returns ``dst``.  A DTensor
+    ``dst`` is written through its own local shard (``to_local()``), with
+    ``src`` laid out like it first (``constrain_like``), so its placements
+    and storage stay what they were."""
+    from torch.distributed.tensor import DTensor
+    with torch.no_grad():
+        if isinstance(dst, DTensor):
+            dst.to_local().copy_(constrain_like(src, dst).to_local())
+        else:
+            dst.copy_(src)
+    return dst
+
+
 class _ToLocal(torch.autograd.Function):
     """A DTensor's local shard; the gradient goes back as a DTensor laid
     out by ``grad_placements`` (Partial where ranks computed pieces of one
@@ -523,7 +538,13 @@ def distribute(tree, placements, mesh):
     if isinstance(tree, torch.Tensor):
         shape, offset = local_box(tree.shape, placements, mesh)
         local = tree[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
-        return DTensor.from_local(local.contiguous(), mesh, placements,
+        # a shard of its own storage: a contiguous slice (a dim-0 shard) of
+        # the whole would keep the whole alive, and be counted whole by
+        # the dry run's storage liveness
+        local = (local.clone() if local.untyped_storage().nbytes()
+                 > local.numel() * local.element_size()
+                 else local.contiguous())
+        return DTensor.from_local(local, mesh, placements,
                                   run_check=False, shape=tree.shape,
                                   stride=contiguous_stride(tree.shape))
     leaf = _is_placements(placements)

@@ -200,13 +200,28 @@ class TreeFlattener:
 
     def flatten(self, tree, dtype=torch.float32) -> torch.Tensor:
         """tree → single [size] vector (one concat buffer)."""
-        return torch.cat([x.reshape(-1).to(dtype) for x in tree_leaves(tree)])
+        return self._concat([x.reshape(1, -1) for x in tree_leaves(tree)],
+                            dtype)[0]
 
     def flatten_stacked(self, tree, dtype=torch.float32) -> torch.Tensor:
         """Tree whose leaves carry a leading axis C → [C, size] matrix."""
         leaves = tree_leaves(tree)
         c = leaves[0].shape[0]
-        return torch.cat([x.reshape(c, -1).to(dtype) for x in leaves], dim=1)
+        return self._concat([x.reshape(c, -1) for x in leaves], dtype)
+
+    def _concat(self, rows, dtype) -> torch.Tensor:
+        """[C, n_i] pieces → [C, size] in ``dtype``.  Pieces of another
+        dtype are cast as they are copied into the one result, so no cast
+        copy of the whole is held beside it (a bf16 bank of C rows of a
+        1.75e9-param model would otherwise peak at twice its f32 size);
+        ``copy_`` casts as ``to`` does."""
+        if all(r.dtype == dtype for r in rows):
+            return torch.cat(rows, dim=1)
+        out = torch.empty((rows[0].shape[0], self.size), dtype=dtype,
+                          device=rows[0].device)
+        for r, o, n in zip(rows, self.offsets, self.sizes):
+            out[:, o:o + n].copy_(r)
+        return out
 
     def unflatten(self, flat: torch.Tensor, dtype=None) -> Dict[str, Any]:
         """[size] vector → tree; leaves restored to their original dtypes
@@ -220,3 +235,14 @@ class TreeFlattener:
                 node = node.setdefault(p, {})
             node[parts[-1]] = flat[o:o + s].reshape(shape).to(dtype or dt)
         return out
+
+    def unflatten_into(self, tree, flat: torch.Tensor) -> None:
+        """[size] vector → ``tree``'s own leaves, written in place, each
+        slice cast to its leaf's dtype as ``unflatten`` casts it."""
+        leaves = tree_leaves(tree)
+        if tuple(tuple(x.shape) for x in leaves) != self.shapes:
+            raise ValueError("unflatten_into: the tree is not the one this "
+                             "flattener was built for")
+        with torch.no_grad():
+            for x, o, s in zip(leaves, self.offsets, self.sizes):
+                x.copy_(flat[o:o + s].view(x.shape))

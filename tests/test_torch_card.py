@@ -28,7 +28,10 @@ The SSD cases cover the m16n8k8 tiles' edges (ragged Q, P, N and heads,
 and P, N not multiples of 4, which take 4-byte copies), the Eq.-8 cases
 the grid's edges (N under a slice, a few groups past a full pass, C 0 and
 256, rows only 4-byte aligned).  Fused Adam: bf16 p within one bf16
-ulp, f32 p within 1e-6 relative, m and v within 1e-6 relative.  Every
+ulp, f32 p within 1e-6 relative, m and v within 1e-6 relative.  Each
+kernel's in-place instance (a donated step's launch) is held bitwise
+against its out-of-place launch on the same inputs, and a donated fused
+Eq.-8 round on DTensor state bitwise against the undonated round.  Every
 kernel check is also shown a planted fault (the plain version with it),
 which it must reject.  The mobile path's cell→cloud hierarchy and a moving
 3-cell open-world run are held against the same on the CPU: protocol
@@ -112,6 +115,25 @@ def test_stale_aggregate_kernel_grid_edges(vec):
         want = agg.stale_aggregate_plain(p, buf, mask, beta=0.07)
         assert float((got - want).abs().max()) <= 1e-6 * (
             1 + float(p.abs().max()))
+
+
+@pytest.mark.parametrize("c,n", [
+    (1, 79_510), (5, 79_510), (128, 79_510),      # vector width 2
+    (5, 1_000_003),                                # width 1
+    (5, 1 << 20),                                  # width 4
+])
+def test_stale_aggregate_in_place_launch_is_the_out_of_place_one(c, n):
+    """The in-place instance (out == p: a donated step) gives the
+    out-of-place launch's bits, into p's own storage."""
+    _need_card()
+    p, buf, mask = _inputs(c, n, seed=c * 7 + n)
+    want = agg.stale_aggregate_flat(p, buf, mask, beta=0.07)
+    ptr, before = p.data_ptr(), agg.LAUNCHES
+    got = agg.stale_aggregate_flat(p, buf, mask, beta=0.07, inplace=True)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES == before + 1
+    assert got is p and p.data_ptr() == ptr
+    assert torch.equal(got, want)
 
 
 def test_stale_aggregate_kernel_rejects_bad_inputs_on_card():
@@ -582,6 +604,31 @@ def test_fused_adam_kernel_matches_plain(n, p_dtype, g_dtype, offset, t):
     assert not adam_close(fault, want)
 
 
+@pytest.mark.parametrize("n,p_dtype,g_dtype,offset", [
+    (3 * 1024 * 4384 // 8, torch.bfloat16, torch.float32, 0),
+    (1_000_003, torch.float32, torch.float32, 0),
+    (4097, torch.bfloat16, torch.bfloat16, 1),     # 1-wide, ragged
+])
+def test_fused_adam_in_place_launch_is_the_out_of_place_one(n, p_dtype,
+                                                            g_dtype, offset):
+    """The in-place instance (outputs are the inputs: a donated step)
+    gives the out-of-place launch's bits, into p's, m's and v's own
+    storage."""
+    _need_card()
+    p, m, v, grad = _adam_inputs(n, p_dtype, g_dtype, offset, seed=n)
+    lr = torch.tensor(3e-3, device="cuda")
+    tt = torch.tensor(4, dtype=torch.int32, device="cuda")
+    want = adam.fused_adam_flat(p, m, v, grad, lr=lr, t=tt)
+    ptrs, before = [x.data_ptr() for x in (p, m, v)], adam.LAUNCHES
+    got = adam.fused_adam_flat(p, m, v, grad, lr=lr, t=tt, inplace=True)
+    torch.cuda.synchronize()
+    assert adam.LAUNCHES == before + 1
+    assert got[0] is p and got[1] is m and got[2] is v
+    assert [x.data_ptr() for x in got] == ptrs
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 def test_fused_adam_kernel_rejects_what_it_does_not_take():
     _need_card()
     p, m, v, grad = _adam_inputs(64, torch.float32, torch.float32, 0, 0)
@@ -821,6 +868,55 @@ def test_sharded_semi_sync_step_is_the_plain_step_bitwise(nccl_mesh):
         for x, y in zip(tree_leaves(a), tree_leaves(b)):
             assert torch.equal(_bits(x.to_local()), _bits(y))
     assert torch.equal(got.staleness.to_local(), want.staleness)
+
+
+def test_donated_sharded_step_is_the_undonated_step_bitwise(nccl_mesh):
+    """Reduced mamba2's fused Eq.-8 round on DTensor state, donated and
+    not, from the same state: the same bits, the donated round's every
+    local shard at its own address and its placements unchanged."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.core import semi_sync
+    from repro_torch.launch import specs, train_e2e
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("mamba2_370m").reduced()
+    model = build_model(cfg)
+    exp = train_e2e.experiment_cfg(cfg, staleness=2, fused_agg=True)
+    sgd = make_optimizer("sgd")
+    rules = specs.arch_rules(cfg, nccl_mesh)
+    corpora = train_e2e.cohort_corpora(4, cfg.vocab_size)
+    mask = torch.tensor([1.0, 1.0, 0.0, 0.0], device="cuda")
+
+    def leaves(st):
+        return [x for t in (st.params, st.buffers) for x in tree_leaves(t)] \
+            + [st.staleness, st.step]
+
+    out = []
+    with sharding.use_mesh(nccl_mesh, rules):
+        for donate in (False, True):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            st = semi_sync.init_state(model, gen, sgd, 4, mesh=nccl_mesh,
+                                      rules=rules)
+            step = semi_sync.make_semi_sync_step(model, exp, sgd, 4,
+                                                 donate=donate)
+            ptrs = [x.to_local().data_ptr() for x in leaves(st)]
+            pls = [x.placements for x in leaves(st)]
+            for k in range(2):
+                b = train_e2e.round_batches(corpora, k, batch=2, seq=64,
+                                            device="cuda")
+                new, _ = step(st, b, mask)
+                if donate:
+                    assert new is st
+                st = new
+            if donate:
+                assert [x.to_local().data_ptr() for x in leaves(st)] == ptrs
+                assert [x.placements for x in leaves(st)] == pls
+            out.append(leaves(st))
+    for x, y in zip(*out):
+        assert torch.equal(_bits(x.to_local()), _bits(y.to_local()))
 
 
 def test_expert_parallel_moe_matches_gather_on_the_card(nccl_mesh):

@@ -10,9 +10,9 @@ what the reference's ``param_specs`` (on an ``AbstractMesh`` of the same
 shape) give: the product over dims of ceil(size / ranks splitting it),
 times the item size, and a peak at least the argument bytes.  Also: the
 roofline's axis pricing, the ``no_remat`` lever (accepted; it turns
-``cfg.remat`` off and raises a plain gradient step's peak), the CLI's
-refusal of levers that mean nothing in torch, and the collective counts
-against torch's ``CommDebugMode``.
+``cfg.remat`` off and raises a plain gradient step's peak), and the
+collective counts against torch's ``CommDebugMode``.  The ``donate``
+lever's cases are in ``tests/test_torch_donate.py``.
 """
 import dataclasses
 import math
@@ -86,8 +86,10 @@ def test_reduced_case_runs_and_param_bytes_match_reference(arch, kind,
     mem = rec["memory"]
     assert mem["argument_bytes"] >= mem["param_bytes"]
     assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["alias_bytes"] == 0                  # nothing donated
     assert mem["temp_bytes"] == max(mem["peak_bytes"] - mem["argument_bytes"]
-                                    - mem["output_bytes"], 0)
+                                    - (mem["output_bytes"]
+                                       - mem["alias_bytes"]), 0)
     assert "compile_s" not in rec                   # absent, not 0
     assert set(rec["roofline"]) >= {"compute_s", "memory_s", "collective_s",
                                     "dominant"}
@@ -186,11 +188,3 @@ def test_cli_accepts_no_remat(monkeypatch, tmp_path):
     dryrun.main(["--arch", "yi_6b", "--shape", "train_4k", "--opt",
                  "no_remat", "--out", str(tmp_path)])
     assert seen == [("no_remat",)]
-
-
-@pytest.mark.parametrize("lever", sorted(dryrun.NO_MEANING))
-def test_cli_refuses_levers_without_meaning(lever, capsys):
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "yi_6b", "--shape", "train_4k", "--opt",
-                     lever])
-    assert "has no meaning here" in capsys.readouterr().err
