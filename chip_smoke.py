@@ -687,17 +687,31 @@ def control(torch, kernel, faulty, want, what):
     return rel
 
 
-def attention_keep(torch, q, k, v, keep):
-    """Plain attention in f32 under an explicit [L, L] keep mask; a row
-    that keeps no key gives 0, as the kernel's ``acc / max(l, 1e-30)``."""
+def keep_mask(torch, sl, causal, window, device="cuda"):
+    """[L, L] bool: the keys (columns) each query (row) keeps, as
+    ``attention_plain`` masks them."""
+    qp = torch.arange(sl, device=device)
+    keep = (qp[None, :] <= qp[:, None]) if causal else \
+        torch.ones(sl, sl, dtype=torch.bool, device=device)
+    if window:
+        keep &= (qp[:, None] - qp[None, :]) < window
+    return keep
+
+
+def attention_keep(torch, q, k, v, keep, cast=None):
+    """Plain attention under an explicit [L, L] keep mask, in f32; a row
+    that keeps no key gives 0, as the kernel's ``acc / max(l, 1e-30)``.
+    ``cast`` takes the place of the cast to f32 for q, k, v and P: the f32
+    route's float64 yardstick casts to float64, its planted fault rounds
+    to TF32."""
+    cast = cast or (lambda t: t.float())
     g = q.shape[1] // k.shape[1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                     k.float().repeat_interleave(g, 1)) / math.sqrt(
+    s = torch.einsum("bhqd,bhkd->bhqk", cast(q),
+                     cast(k).repeat_interleave(g, 1)) / math.sqrt(
                          q.shape[-1])
-    p = torch.softmax(s.masked_fill_(~keep, -1e30), -1).mul_(keep)
+    p = cast(torch.softmax(s.masked_fill_(~keep, -1e30), -1).mul_(keep))
     del s
-    return torch.einsum("bhqk,bhkd->bhqd", p,
-                        v.float().repeat_interleave(g, 1))
+    return torch.einsum("bhqk,bhkd->bhqd", p, cast(v).repeat_interleave(g, 1))
 
 
 def _flash_pairs(sl, causal, window):
@@ -716,6 +730,42 @@ def _bound(nbytes, ops, peak_flops):
                                  else "operations")
 
 
+def flash_bound(nbytes, ops):
+    """The f32 flash route's least time (ms) and what bounds it: both
+    products run in 3xTF32, three TF32 products on the tensor cores for
+    each f32 one (the exponentials, one a kept pair on the SFU, come to
+    under a tenth of that)."""
+    return _bound(nbytes, 3 * ops, H100_TF32_FLOPS)
+
+
+def tf32_round(torch, x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def attention_one_tf32(torch, q, k, v, causal, window):
+    """The planted fault of the f32 route: the plain version with q, k, v
+    and P rounded to TF32, one TF32 product where the kernel runs three.
+    One batch row at a time, to bound the scores' memory."""
+    keep = keep_mask(torch, q.shape[2], causal, window, q.device)
+    return torch.cat([attention_keep(
+        torch, *(t[i:i + 1] for t in (q, k, v)), keep,
+        cast=lambda t: tf32_round(torch, t.float()))
+        for i in range(q.shape[0])])
+
+
+def control_f32(torch, faulty, want, what):
+    """A planted fault's output must fail the f32 flash limit, or the check
+    could not tell the kernel's 3xTF32 from one TF32 product."""
+    err, rel = attn_errors(faulty, want)
+    check(err > F32_ABS_TOL, f"planted fault '{what}' reads {err:.3e}, "
+          f"inside the f32 limit {F32_ABS_TOL:.0e}: the check cannot see it")
+    print(f"[control] flash f32, planted fault '{what}': max abs {err:.3e} "
+          f"> {F32_ABS_TOL:.0e}, rejected (max row rel {rel:.3e})")
+    return err
+
+
 def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
     g = torch.Generator(device="cuda").manual_seed(sl + d)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -732,6 +782,11 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
     err, rel = hold(torch, "flash", got, want, f"flash kernel vs plain "
                     f"({dtype}, L={sl}, window={window})")
     del got
+    fault_err = None
+    if dtype == torch.float32:
+        fault_err = control_f32(torch, attention_one_tf32(
+            torch, q, k, v, causal, window), want, "one TF32 product")
+        torch.cuda.empty_cache()
     if dtype == torch.bfloat16 and 0 < window < sl:
         control(torch, "flash", fa.attention_plain(
             q.float(), k.float(), v.float(), causal=causal,
@@ -740,10 +795,7 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
         # the 64 keys of each row's own 64-key tile (the K tile at D 128
         # and 256) dropped, under the row's mask
         qp = torch.arange(sl, device="cuda")
-        keep = (qp[None, :] <= qp[:, None]) if causal else \
-            torch.ones(sl, sl, dtype=torch.bool, device="cuda")
-        if window:
-            keep &= (qp[:, None] - qp[None, :]) < window
+        keep = keep_mask(torch, sl, causal, window)
         keep &= (qp[None, :] // 64) != (qp[:, None] // 64)
         control(torch, "flash", attention_keep(torch, q, k, v, keep), want,
                 "diagonal tile skipped")
@@ -755,33 +807,46 @@ def _flash_case(torch, fa, F, dtype, b, hq, hkv, sl, d, causal, window):
                          trials=3 if slow else 10)
     t_plain = device_ms(torch, lambda: fa.attention_plain(
         q, k, v, causal=causal, window=window), reps=1, trials=3)
-    mask = None
-    if 0 < window < sl:        # a window as long as L cuts nothing
-        qp = torch.arange(sl, device="cuda")
-        mask = (qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :]
-                                               < window)
-    t_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
-        enable_gqa=True), reps=3, trials=10)
+    # a window as long as L cuts nothing
+    mask = keep_mask(torch, sl, True, window) if 0 < window < sl else None
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    t_lib = device_ms(torch, sdpa, reps=3, trials=10)
+    # does SDPA compute the same function, at this dtype's accuracy?
+    lib_err, lib_rel = attn_errors(sdpa(), fa.attention_plain(
+        q.float(), k.float(), v.float(), causal=causal, window=window))
+    torch.cuda.empty_cache()
     elem = q.element_size()
     nbytes = (2 * b * hq * sl * d + 2 * b * hkv * sl * d) * elem
     ops = 4 * b * hq * d * _flash_pairs(sl, causal, window)
-    bound, by = _bound(nbytes, ops, H100_BF16_FLOPS if elem == 2
-                       else H100_F32_FLOPS)
+    if elem == 2:
+        bound, by = _bound(nbytes, ops, H100_BF16_FLOPS)
+        rate = f"{ops / t_kernel / 1e9:.1f} TFLOP/s"
+    else:
+        bound, by = flash_bound(nbytes, ops)
+        rate = (f"{ops / t_kernel / 1e9:.1f} TFLOP/s of f32 work, "
+                f"{3 * ops / t_kernel / 1e9:.1f} of TF32 issued")
     first = FIRST_DESIGN_MS.get(("flash", str(dtype)[6:],
                                  (b, hq, hkv, sl, d, causal, window)))
     row = dict(max_abs_err=err, max_row_rel_err=rel, ms=t_kernel,
                plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
                bound_by=by, kernel_route=fa.route(dtype, d),
-               smem_bytes=fa.smem_bytes(dtype, d))
+               smem_bytes=fa.smem_bytes(dtype, d),
+               library_max_abs_err=lib_err, library_max_row_rel_err=lib_rel)
+    if fault_err is not None:
+        row["one_tf32_fault_max_abs_err"] = fault_err
     print(f"[attn] flash {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} L={sl} "
           f"D={d} causal={causal} window={window}, route "
           f"{row['kernel_route']} ({row['smem_bytes']} B shared memory a "
           f"CTA): err={err:.3e} row rel={rel:.3e}  kernel={t_kernel:.3f} ms "
           + (f"(first design, PERF.md: {first:.3f} ms)  " if first else "")
           + f"plain={t_plain:.3f} ms  "
-          f"sdpa={t_lib:.3f} ms  bound={bound:.3f} ms ({by}; "
-          f"{ops / t_kernel / 1e9:.1f} TFLOP/s)")
+          f"sdpa={t_lib:.3f} ms (vs plain: err={lib_err:.3e} row "
+          f"rel={lib_rel:.3e})  bound={bound:.3f} ms ({by}; {rate})")
     return row
 
 
@@ -870,6 +935,11 @@ FLASH_VISION_SHAPE = (2, 32, 8, 4096, 128, True, 0)
 FLASH_AUDIO_SHAPE = (2, 32, 32, 4096, 64, True, 0)
 FLASH_ZOO_SHAPES = {"llama32_vision_11b": FLASH_VISION_SHAPE,
                     "musicgen_large": FLASH_AUDIO_SHAPE}
+FLASH_SHAPES = (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE, FLASH_HYBRID_SHAPE,
+                FLASH_MOE_SHAPE, *FLASH_ZOO_SHAPES.values())
+# the bf16 mma.sync route (D 16 and 32) at the scoring streams' length; no
+# model of the zoo has this head dim, so it is timed here alone
+FLASH_D32_SHAPE = (2, 32, 4, 4096, 32, True, 0)
 DECODE_SHAPE = (4, 32, 4, 4096, 128)
 # the first designs' times at these shapes, printed for comparison only
 # (constants, not measured here; PERF.md §6, the kernel table: the first
@@ -880,6 +950,11 @@ FIRST_DESIGN_MS = {
     ("flash", "bfloat16", FLASH_HYBRID_SHAPE): 1.698,      # its mma.sync kernel
     ("flash", "float32", FLASH_SCORE_SHAPE): 23.415,
     ("flash", "float32", FLASH_WINDOW_SHAPE): 2.911,
+    # the CUDA-core f32 kernel at the zoo's shapes (PERF.md §6, row 3)
+    ("flash", "float32", FLASH_HYBRID_SHAPE): 11.062,
+    ("flash", "float32", FLASH_MOE_SHAPE): 34.890,
+    ("flash", "float32", FLASH_VISION_SHAPE): 23.439,
+    ("flash", "float32", FLASH_AUDIO_SHAPE): 9.897,
     ("decode", "bfloat16"): 0.12835, ("decode", "float32"): 0.15835}
 
 
@@ -887,14 +962,14 @@ def phase_attention_vs_plain(torch, fa, da):
     import torch.nn.functional as F
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in (FLASH_SCORE_SHAPE, FLASH_WINDOW_SHAPE,
-                      FLASH_HYBRID_SHAPE, FLASH_MOE_SHAPE,
-                      *FLASH_ZOO_SHAPES.values()):
+        for shape in FLASH_SHAPES:
             rows[("flash", dtype, shape)] = _flash_case(torch, fa, F, dtype,
                                                         *shape)
             torch.cuda.empty_cache()
         rows[("decode", dtype)] = _decode_case(torch, da, F, dtype,
                                                *DECODE_SHAPE)
+    rows[("flash", torch.bfloat16, FLASH_D32_SHAPE)] = _flash_case(
+        torch, fa, F, torch.bfloat16, *FLASH_D32_SHAPE)
     return rows
 
 
@@ -5217,6 +5292,15 @@ def main():
          "path": "yi-6b scoring forward, one launch per layer",
          "shape": list(FLASH_SCORE_SHAPE), "dtype": "bfloat16",
          **attn[("flash", torch.bfloat16, FLASH_SCORE_SHAPE)],
+         "float32": dict(
+             attn[("flash", torch.float32, FLASH_SCORE_SHAPE)],
+             window=attn[("flash", torch.float32, FLASH_WINDOW_SHAPE)],
+             bound_ops="kept (q, k) pairs; each product three TF32 "
+                       "products (3xTF32)"),
+         "mma_sync_d32": dict(
+             attn[("flash", torch.bfloat16, FLASH_D32_SHAPE)],
+             shape=list(FLASH_D32_SHAPE), path="timed alone: no model of "
+             "the zoo has head dim 16 or 32"),
          "hybrid": {
              "path": "recurrentgemma-2b scoring forward, one launch per "
                      "attention block",
@@ -5228,7 +5312,7 @@ def main():
              "float32": dict(
                  attn[("flash", torch.float32, FLASH_HYBRID_SHAPE)],
                  ptxas=_instance(ptxas["flash_attention.cu"],
-                                 "flash_f32_kernel", 256))},
+                                 "flash_3xtf32_kernel", 256))},
          "dense_remainder": {
              arch: {"launches": r["launches"], "head_dim": r["head_dim"]}
              for arch, r in dense.items()},

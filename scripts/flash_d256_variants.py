@@ -30,22 +30,21 @@ and the turns, and compares the machine code (``cuobjdump -sass``) of its
 ``flash_wgmma_kernel<64>`` and ``<128>`` with the shipped source's.
 
 Needs one CUDA card and the CUDA toolkit; prints the card's name and power
-limit.  Exits 1 if no variant builds and passes.
+limit.  Exits 1 if no variant builds and passes.  The building, calling and
+timing are ``scripts/flash_variants_common.py``'s.
 """
 import argparse
-import concurrent.futures
-import ctypes
 import json
 import math
 import os
 import re
 import subprocess
 import sys
-import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
-                      "flash_attention.cu")
+from flash_variants_common import (ROOT, SOURCE, build, call, card,
+                                   check_each, in_turns, inputs, load,
+                                   ptxas_report, sdpa_ms, time_in_process)
+
 WORK = os.path.join(ROOT, "build", "flash_d256_variants")
 
 # name: (keys a K/V tile, ring stages, producer warpgroup); "shipped" is
@@ -118,42 +117,6 @@ def variant_source(bk, stages, producer):
     return src
 
 
-def ptxas_d256(log):
-    """ptxas's lines for flash_wgmma_kernel<256> (registers, spills and any
-    C75xx warning, which names the function it concerns)."""
-    out, cur = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = m.group(1)
-            continue
-        warn = re.search(r"\((C75\d+)\) (.*) for the function '(\S+)'", line)
-        if warn and "flash_wgmma_kernelILi256E" in warn.group(3):
-            out.append(f"{warn.group(1)} {warn.group(2)}")
-        elif cur and "flash_wgmma_kernelILi256E" in cur and (
-                "registers" in line or "spill" in line):
-            out.append(line.split(":", 1)[-1].strip())
-    return "; ".join(out)
-
-
-def build(sources):
-    """name -> (return code, seconds, ptxas report or the compiler's
-    error), all at once."""
-    from repro_torch.kernels._build import NVCC_FLAGS, nvcc
-
-    def one(name):
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o",
-                               os.path.join(WORK, f"{name}.so"),
-                               sources[name]], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        return name, (proc.returncode, time.perf_counter() - t0,
-                      ptxas_d256(log) if proc.returncode == 0 else log[-3000:])
-
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-        return dict(ex.map(one, sources))
-
-
 def sass(so):
     """Kernel name -> its instructions (``cuobjdump -sass``), addresses
     and encodings left out."""
@@ -185,37 +148,6 @@ def same_sass(old_so, new_so):
     return out
 
 
-def _load(name):
-    lib = ctypes.CDLL(os.path.join(WORK, f"{name}.so"))
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lib, fn
-
-
-def _call(torch, fn, route, q, k, v, out, causal, window):
-    """q, k, v, out as [B, H, L, D] views (head dim contiguous)."""
-    b, hq, sl, d = q.shape
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), route,
-             b, hq, k.shape[1], sl, d, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], *out.stride()[:3], int(causal), int(window),
-             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"launch failed with CUDA error {err}")
-    return out
-
-
-def _inputs(torch, shape, seed):
-    b, hq, hkv, sl, d, _, _ = shape
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
-            for s in ((b, hq, sl, d), (b, hkv, sl, d), (b, hkv, sl, d))]
-
-
 def check(name, route):
     """Every case, in the [B, H, L, D] layout and in the model's; prints
     one JSON line; exit code 0 if every row is inside the limit."""
@@ -223,17 +155,17 @@ def check(name, route):
 
     import chip_smoke as cs
     from repro_torch.kernels import flash_attention as fa
-    lib, fn = _load(name)
+    lib, fn = load(WORK, name)
     worst = 0.0
     for shape in CASES + [cs.FLASH_HYBRID_SHAPE]:
         causal, window = shape[5], shape[6]
-        q, k, v = _inputs(torch, shape, seed=shape[3] + shape[4])
-        got = _call(torch, fn, route, q, k, v, torch.empty_like(q), causal,
-                    window)
+        q, k, v = inputs(torch, shape, shape[3] + shape[4], torch.bfloat16)
+        got = call(torch, fn, route, q, k, v, torch.empty_like(q), causal,
+                   window)
         qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         got_m = torch.empty_like(qm)
-        _call(torch, fn, route, qm.transpose(1, 2), km.transpose(1, 2),
-              vm.transpose(1, 2), got_m.transpose(1, 2), causal, window)
+        call(torch, fn, route, qm.transpose(1, 2), km.transpose(1, 2),
+             vm.transpose(1, 2), got_m.transpose(1, 2), causal, window)
         torch.cuda.synchronize()
         want = fa.attention_plain(q.float(), k.float(), v.float(),
                                   causal=causal, window=window)
@@ -255,28 +187,22 @@ def check(name, route):
 def time_variants(routes):
     """{name: [ms, ms]} at FLASH_HYBRID_SHAPE in turns, and SDPA's ms."""
     import torch
-    import torch.nn.functional as F
 
     import chip_smoke as cs
     shape = cs.FLASH_HYBRID_SHAPE
     _, _, _, sl, _, causal, window = shape
-    q, k, v = _inputs(torch, shape, seed=1)
+    q, k, v = inputs(torch, shape, 1, torch.bfloat16)
     out = torch.empty_like(q)
-    fns = {name: _load(name)[1] for name in routes}
+    fns = {name: load(WORK, name)[1] for name in routes}
     ops = 4 * shape[0] * shape[1] * shape[4] * cs._flash_pairs(sl, causal,
                                                                 window)
-    ms = {name: [] for name in routes}
-    for name in list(routes) + list(routes)[::-1]:
-        t = cs.device_ms(torch, lambda: _call(
-            torch, fns[name], routes[name], q, k, v, out, causal, window),
-            reps=3, trials=15)
-        ms[name].append(t)
-        print(f"[time] {name}: {t:.4f} ms ({ops / t / 1e9:.1f} TFLOP/s)",
-              flush=True)
-    qp = torch.arange(sl, device="cuda")
-    mask = (qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :] < window)
-    sdpa = cs.device_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=True), reps=3, trials=10)
+    ms = in_turns(torch, cs, routes, lambda name: call(
+        torch, fns[name], routes[name], q, k, v, out, causal, window),
+        trials=15)
+    for name, ts in ms.items():
+        print(f"[time] {name}: " + ", ".join(
+            f"{ops / t / 1e9:.1f}" for t in ts) + " TFLOP/s", flush=True)
+    sdpa = sdpa_ms(torch, cs, q, k, v, causal, window)
     print(f"[time] sdpa (bool mask): {sdpa:.4f} ms", flush=True)
     return dict(ms=ms, sdpa_ms=sdpa, flop=ops)
 
@@ -297,10 +223,7 @@ def main():
         print("RESULT " + json.dumps(time_variants(json.loads(args.time))))
         return 0
 
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
-                          "power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card()
     print(smi)
     os.makedirs(WORK, exist_ok=True)
     sources, routes = {}, {}
@@ -312,7 +235,8 @@ def main():
     sources["shipped"], routes["shipped"] = SOURCE, 2
     if args.old_source:
         sources["old"], routes["old"] = os.path.abspath(args.old_source), 1
-    built = build(sources)
+    built = build(sources, WORK, lambda log: ptxas_report(
+        log, "flash_wgmma_kernel").get("256", ""))
     for name, (rc, dt, report) in built.items():
         print(f"[build] {name}: rc {rc}, {dt:.1f} s; {report}", flush=True)
     same = {}
@@ -322,29 +246,17 @@ def main():
         for kernel, (n_old, n_new, equal) in same.items():
             print(f"[sass] {kernel}: old {n_old} instructions, shipped "
                   f"{n_new}, identical: {equal}", flush=True)
-    passed = {}
-    for name in routes:
-        if built[name][0] != 0:
-            continue
-        proc = subprocess.run([sys.executable, __file__, "--check", name,
-                               str(routes[name])], timeout=600)
-        print(f"[check] {name}: {'passed' if proc.returncode == 0 else 'FAILED'}",
-              flush=True)
-        if proc.returncode == 0:
-            passed[name] = routes[name]
+    passed = {name: routes[name] for name in check_each(
+        __file__, {name: [routes[name]] for name in routes
+                   if built[name][0] == 0})}
     if not passed:
         return 1
-    proc = subprocess.run([sys.executable, __file__, "--time",
-                           json.dumps(passed)], capture_output=True,
-                          text=True, timeout=900)
-    print(proc.stdout + proc.stderr, end="")
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
-    if proc.returncode != 0 or not lines:
+    times = time_in_process(__file__, passed, timeout=900)
+    if times is None:
         return 1
     result = dict(card=smi, layouts={n: VARIANTS.get(n) for n in routes},
                   ptxas={n: built[n][2] for n in built if built[n][0] == 0},
-                  sass_d64_d128=same, passed=sorted(passed),
-                  **json.loads(lines[0][7:]))
+                  sass_d64_d128=same, passed=sorted(passed), **times)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

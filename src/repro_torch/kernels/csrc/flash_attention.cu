@@ -83,10 +83,60 @@
 //   not replace at these widths.  Q stays in shared memory, and each
 //   16-column chunk's A fragment is read once per K tile and shared by the
 //   tile's 8 key groups.
-// * f32, D in {16, 32, 64, 128, 256}: flash_f32_kernel, FMAs on the CUDA
-//   cores, so the f32 path matches a float32 reference to float32
-//   rounding (23.4 ms at the scoring shape, against 26.5 ms for SDPA in
-//   f32); 217,088 B of shared memory a CTA at D 256.
+// * f32, D in {16, 32, 64, 128, 256}: flash_3xtf32_kernel, both products
+//   on the tensor cores in 3xTF32, so that the route computes the float32
+//   function to about float32 rounding.  Bound: each f32 product is three
+//   TF32 products, so 3 x 4 x kept pairs x D over the 495 TFLOP/s of TF32
+//   (1.666 ms at the scoring shape, 0.833 ms at MusicGen's D 64); bytes
+//   are a tenth of that.  The first design (FMAs on the CUDA cores, 4
+//   threads a q row, each K/V element read from shared memory once a row,
+//   synchronous copies, one 118,784 B CTA an SM at D 128) took 23.4 ms at
+//   the scoring shape, against 26.5 ms for SDPA in f32; this one takes
+//   ~5.4 ms there and ~2.8 ms at MusicGen's D 64, where SDPA takes 4.26
+//   (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//   - 3xTF32: every operand v is split in registers into hi (v with its
+//     low 13 mantissa bits cleared: a mask, not cvt.rna) and lo = v - hi
+//     (exact), and each product adds lo*hi + hi*lo + hi*hi, about 22 bits
+//     an operand where one TF32 product keeps 11.  S keeps its cross terms
+//     in a second accumulator, so the three products of a step do not wait
+//     on each other.  The tensor cores' f32 sums drop the low bits of each
+//     addition, biased toward 0: summed over a 4,096-key row on the tensor
+//     cores, O drifted by 4.6e-5 of its size (H100, as above), so each K/V
+//     tile's share of O is summed from 0 there and added to O in IEEE f32
+//     (4.6e-6 at that shape).
+//   - The instruction is mma.sync.m16n8k8 (tf32): its fragments are split
+//     in registers, so no hi/lo copy sits in shared memory, and one kernel
+//     serves every D.  wgmma takes TF32 operands K-major only (V would be
+//     staged key-major) and reads B from shared memory, so both hi and lo
+//     of K and V would sit there: twice the bytes of a K/V tile, 128 KB a
+//     64-key stage at D 256.
+//   - Reuse: each warp takes 16 q rows against the whole K/V tile, so each
+//     K/V fragment read from shared memory feeds 16 rows.  Q and K are
+//     read with 16-byte loads that feed two k-steps (columns 4t .. 4t + 3
+//     of 16: the product's k order is free as long as Q and K agree), V
+//     with loads that feed up to four n tiles (O's columns are permuted in
+//     registers and put back when O is written).
+//   - P stays in registers with no shuffle and no shared memory: P V's
+//     k index is permuted so that step index t is key 2t and t + 4 is key
+//     2t + 1, which makes S's accumulator layout the A fragment's; V's
+//     fragments are read from key rows 2t and 2t + 1.
+//   - CTAs: 4 warps (64 q rows) up to D 128, two CTAs an SM (96,256 B of
+//     shared memory at D 64 with 64-key tiles, 107,520 B at D 128 with
+//     32-key tiles); at D 256, where O alone takes 128 registers a thread,
+//     8 warps (128 q rows) and 16-key tiles, one 207,360 B CTA an SM: with
+//     4 warps an SM the tensor cores idled (3.9 ms at RecurrentGemma's
+//     shape, against 2.8).
+//   - K/V tiles come through a two-stage cp.async ring (16-byte copies
+//     through any stride, a stride of 0 included; rows past L
+//     zero-filled): tile i + 1 is copied while tile i is multiplied, one
+//     barrier a tile.
+//   - Softmax in base 2 (log2 e folded into the scale, ex2.approx); the
+//     mask is evaluated once an element and only on a tile that L, the
+//     diagonal or the window's edge cuts; a warp skips a tile that its
+//     rows mask whole; each thread keeps its share of the row sums, added
+//     across the quad once at the end; O's rescale is skipped where no
+//     row's maximum moved.  With a causal mask the q tiles launch
+//     heaviest first.
 //
 // What the first bf16 design lost (4.28 ms at the scoring shape, against
 // 0.455 ms for F.scaled_dot_product_attention on an H100, PERF.md): every
@@ -102,6 +152,7 @@
 // the head dim contiguous, so no transposed or padded copy is made.  The C
 // entry point checks its arguments and returns a cudaError_t.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -135,14 +186,16 @@ __device__ __forceinline__ bool allowed(const Params& p, int q, int k) {
   return ok;
 }
 
-// K tiles [begin, end) that hold a key some row of the q tile may see.
+// K tiles of BK keys [begin, end) that hold a key some row of the BQ-row q
+// tile at q0 may see.
+template <int BQ = kBlockQ, int BK = kBlockK>
 __device__ __forceinline__ void k_tiles(const Params& p, int q0, int& begin,
                                         int& end) {
-  const int q_last = min(q0 + kBlockQ, p.L) - 1;
+  const int q_last = min(q0 + BQ, p.L) - 1;
   const int k_hi = p.causal ? q_last : p.L - 1;
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  begin = k_lo / kBlockK;
-  end = k_hi / kBlockK + 1;
+  begin = k_lo / BK;
+  end = k_hi / BK + 1;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -170,127 +223,6 @@ __device__ __forceinline__ void load_rows(T* dst, int lds, const T* src,
     if (r0 + r < L)
       val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
     *reinterpret_cast<uint4*>(dst + r * lds + c) = val;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA-core FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 256;   // 4 threads per q row
-
-template <int D>
-constexpr int f32_smem_bytes() {
-  return (3 * 64 * (D + 4) + 64 * (kBlockK + 4)) * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_f32_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LDS = D + 4;          // padded rows: conflict-free float4
-  constexpr int LDP = kBlockK + 4;
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + kBlockQ * LDS;
-  float* Vs = Ks + kBlockK * LDS;
-  float* Ps = Vs + kBlockK * LDS;
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;           // q row of the tile
-  const int sub = tid & 3;            // keys sub + 4j; columns sub*4 + 16i
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / p.group;
-  const int qi = q0 + row;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + hk * p.sv.h;
-
-  load_rows<float, D>(Qs, LDS, q, p.sq.l, q0, p.L);
-
-  float4 acc[D / 16];
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m = kNegInf, l = 0.f;
-
-  int kt0, kt1;
-  k_tiles(p, q0, kt0, kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();                  // the previous tile is consumed
-    load_rows<float, D>(Ks, LDS, k, p.sk.l, k0, p.L);
-    load_rows<float, D>(Vs, LDS, v, p.sv.l, k0, p.L);
-    __syncthreads();
-
-    float s[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + row * LDS + d);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(Ks + (sub + 4 * j) * LDS + d);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
-    }
-
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      s[j] = allowed(p, qi, k0 + sub + 4 * j) ? s[j] * p.scale : kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m, quad_max(mx));
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float pj =
-          allowed(p, qi, k0 + sub + 4 * j) ? expf(s[j] - m_new) : 0.f;
-      rs += pj;
-      Ps[row * LDP + sub + 4 * j] = pj;
-    }
-    const float alpha = expf(m - m_new);
-    l = alpha * l + quad_sum(rs);
-    m = m_new;
-    __syncwarp();                     // the row's quad sits in one warp
-
-#pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
-      acc[i].x *= alpha; acc[i].y *= alpha;
-      acc[i].z *= alpha; acc[i].w *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      const float pk = Ps[row * LDP + kk];
-#pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(Vs + kk * LDS + sub * 4 + 16 * i);
-        acc[i].x = fmaf(pk, vv.x, acc[i].x);
-        acc[i].y = fmaf(pk, vv.y, acc[i].y);
-        acc[i].z = fmaf(pk, vv.z, acc[i].z);
-        acc[i].w = fmaf(pk, vv.w, acc[i].w);
-      }
-    }
-  }
-
-  if (qi < p.L) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* o = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h +
-               qi * p.so.l;
-#pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
-      const float4 r = make_float4(acc[i].x * inv, acc[i].y * inv,
-                                   acc[i].z * inv, acc[i].w * inv);
-      *reinterpret_cast<float4*>(o + sub * 4 + 16 * i) = r;
-    }
   }
 }
 
@@ -1192,6 +1124,309 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores through mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct F32Layout {
+  // warps a CTA, 16 q rows each: 4, two CTAs an SM up to D 128; 8 at
+  // D 256, where Q's rows fill shared memory so that one CTA fits an SM
+  // and its warps are the SM's only ones
+  static constexpr int kWarps = D == 256 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;
+  // keys a K/V tile: 64 up to D 64; 32 at D 128, so that two CTAs fit an
+  // SM; 16 at D 256, where O takes 128 registers a thread and Q 139 KB
+  static constexpr int kBK = D <= 64 ? 64 : D == 256 ? 16 : 32;
+  // row strides in floats: Q and K rows 16 mod 32, so that the 16-byte
+  // fragment loads of a quarter warp (rows g, g + 1; columns 4t) hit 32
+  // banks; V rows 4 mod 32, so that those of rows 2t and 2t + 1 do
+  static constexpr int kLdQK = D % 32 == 16 ? D : D + 16;
+  static constexpr int kLdV = D + 4;
+  // n tiles of P V that one vector load of a V row feeds: a float4; a
+  // float2 at D 16, which has two; one float at D 256, where the tile's
+  // sums of more n tiles at once made the kernel spill
+  static constexpr int kNV = D == 256 ? 1 : D >= 32 ? 4 : 2;
+  static constexpr int kKFloats = kBK * kLdQK;
+  static constexpr int kStageFloats = kKFloats + kBK * kLdV;
+  // Q, then two stages of K and V
+  static constexpr int kSmemBytes = 4 * (kBQ * kLdQK + 2 * kStageFloats);
+  static constexpr int kMinBlocks = kSmemBytes <= 113 * 1024 ? 2 : 1;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [r0, r0 + rows) of an [L, D] f32 matrix with row stride `stride`
+// into shared rows of `ld` floats, 16 bytes a cp.async; rows >= L are
+// zero-filled.  Every thread of the CTA calls it.
+template <int D, int kThreads>
+__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
+                                          long long stride, int r0, int rows,
+                                          int L) {
+  constexpr int kPerRow = D / 4;
+  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const bool ok = r0 + r < L;
+    cp_async16(dst + r * ld + c, ok ? src + (r0 + r) * stride + c : src, ok);
+  }
+}
+
+// hi = v with its low 13 mantissa bits cleared (a TF32 value), lo = v - hi
+// (exact in f32): a mask and a subtraction, where cvt.rna.tf32.f32 runs on
+// a slower pipe (as csrc/ssd_scan.cu splits its operands)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate; with g =
+// lane / 4, t = lane % 4: a = (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4); b = (k t, n g), (k t + 4, n g); d = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a's four values split into hi and lo fragments
+__device__ __forceinline__ void split4(float a0, float a1, float a2, float a3,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(a0, hi[0], lo[0]);
+  split(a1, hi[1], lo[1]);
+  split(a2, hi[2], lo[2]);
+  split(a3, hi[3], lo[3]);
+}
+
+template <int N>
+__device__ __forceinline__ void ld_vec(float (&x)[N], const float* ptr) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(ptr);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(ptr);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = *ptr;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_vec(float* ptr, const float (&x)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(ptr) = make_float4(x[0], x[1], x[2], x[3]);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(ptr) = make_float2(x[0], x[1]);
+  else
+    *ptr = x[0];
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Layout<D>::kThreads,
+                                  F32Layout<D>::kMinBlocks)
+flash_3xtf32_kernel(Params p) {
+  using Lay = F32Layout<D>;
+  constexpr int BK = Lay::kBK, LDQ = Lay::kLdQK, LDV = Lay::kLdV;
+  constexpr int NV = Lay::kNV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = Qs + Lay::kBQ * LDQ;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // with a causal mask the q tiles launch heaviest (last) first
+  const int qt = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * Lay::kBQ;
+  const int hk = h / p.group;
+  const int qw = q0 + warp * 16;          // this warp's first row
+  const int qr[2] = {qw + g, qw + g + 8};
+
+  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + hk * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + hk * p.sv.h;
+
+  int kt0, kt1;
+  k_tiles<Lay::kBQ, BK>(p, q0, kt0, kt1);
+  auto stage_kv = [&](int kt, int slot) {
+    float* ks = ring + slot * Lay::kStageFloats;
+    stage_f32<D, Lay::kThreads>(ks, LDQ, k, p.sk.l, kt * BK, BK, p.L);
+    stage_f32<D, Lay::kThreads>(ks + Lay::kKFloats, LDV, v, p.sv.l, kt * BK,
+                                BK, p.L);
+  };
+  stage_f32<D, Lay::kThreads>(Qs, LDQ, q, p.sq.l, q0, Lay::kBQ, p.L);
+  stage_kv(kt0, 0);
+  cp_async_commit();
+
+  // O's n tile NV c + i holds columns 8 NV c + NV n + i (n the tile's
+  // column 2t or 2t + 1): a thread's V fragments for NV tiles are one
+  // vector load, and its outputs 2 NV contiguous floats a row
+  float o[D / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};               // this thread's share of the sums
+  const float scale_log2 = p.scale * 1.4426950408889634f;
+  const float* qa = Qs + (warp * 16 + g) * LDQ + 4 * t;
+  const float* qb = qa + 8 * LDQ;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int slot = (kt - kt0) & 1;
+    cp_async_wait_all();
+    __syncthreads();      // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt1) stage_kv(kt + 1, slot ^ 1);
+    cp_async_commit();
+    const int k0 = kt * BK;
+    // a tile whose every key the mask drops for each of the warp's rows
+    if (qw >= p.L || (p.causal && k0 > qw + 15) ||
+        (p.window > 0 && qw - (k0 + BK - 1) >= p.window))
+      continue;
+    const float* ks = ring + slot * Lay::kStageFloats;
+    const float* vs = ks + Lay::kKFloats;
+
+    // S = Q K^T, 16 columns of D a step: a thread's 16-byte loads of Q
+    // (rows g, g + 8) and K (key 8j + g) at columns 16kc + 4t feed two
+    // k-steps, columns (4t, 4t + 1) as the fragments' (t, t + 4), then
+    // (4t + 2, 4t + 3); the cross terms sum apart from hi * hi
+    float s[BK / 8][4] = {}, sx[BK / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      float x[4], y[4];
+      ld_vec<4>(x, qa + 16 * kc);
+      ld_vec<4>(y, qb + 16 * kc);
+      uint32_t ah0[4], al0[4], ah1[4], al1[4];
+      split4(x[0], y[0], x[1], y[1], ah0, al0);
+      split4(x[2], y[2], x[3], y[3], ah1, al1);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float kv[4];
+        ld_vec<4>(kv, ks + (8 * j + g) * LDQ + 16 * kc + 4 * t);
+        uint32_t bh[4], bl[4];
+        split4(kv[0], kv[1], kv[2], kv[3], bh, bl);
+        mma_tf32(sx[j], al0, bh[0], bh[1]);
+        mma_tf32(sx[j], ah0, bl[0], bl[1]);
+        mma_tf32(s[j], ah0, bh[0], bh[1]);
+        mma_tf32(sx[j], al1, bh[2], bh[3]);
+        mma_tf32(sx[j], ah1, bl[2], bl[3]);
+        mma_tf32(s[j], ah1, bh[2], bh[3]);
+      }
+    }
+
+    // online softmax in base 2: element e of tile j is row qr[e / 2], key
+    // k0 + 8j + 2t + e % 2.  The mask is evaluated only on a tile that L,
+    // the diagonal or the window's edge cuts; a masked score is -inf, so
+    // its p is 0 also where the whole row is masked so far (m = -1e30).
+    const bool edge = k0 + BK > p.L || (p.causal && k0 + BK - 1 > qw) ||
+                      (p.window > 0 && qw + 15 - k0 >= p.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (s[j][e] + sx[j][e]) * scale_log2;
+        if (edge && !allowed(p, qr[e >> 1], k0 + 8 * j + 2 * t + (e & 1)))
+          x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = fast_exp2(m[r] - mn);
+      m[r] = mn;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+    l[0] = alpha[0] * l[0] + rs[0];
+    l[1] = alpha[1] * l[1] + rs[1];
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+      }
+    }
+
+    // O += P V, 8 keys a step.  P stays in registers with no shuffle: the
+    // step's k index t stands for key 8j + 2t and t + 4 for key 8j + 2t +
+    // 1, so S's accumulator (g, 2t), (g, 2t + 1), (g + 8, ...) is already
+    // the A fragment, and V's fragments are read from rows 2t and 2t + 1.
+    // The tile's share is summed from 0 on the tensor cores, NV n tiles
+    // at a time, and added to O in IEEE f32 (their sums drop low bits).
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      split4(s[j][0], s[j][2], s[j][1], s[j][3], ph[j], pl[j]);
+    const float* v0 = vs + 2 * t * LDV + NV * g;
+#pragma unroll
+    for (int c = 0; c < D / (8 * NV); ++c) {
+      float acc[NV][4] = {};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float x0[NV], x1[NV];
+        ld_vec<NV>(x0, v0 + 8 * j * LDV + 8 * NV * c);
+        ld_vec<NV>(x1, v0 + (8 * j + 1) * LDV + 8 * NV * c);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(x0[i], bh0, bl0);
+          split(x1[i], bh1, bl1);
+          mma_tf32(acc[i], pl[j], bh0, bh1);
+          mma_tf32(acc[i], ph[j], bl0, bl1);
+          mma_tf32(acc[i], ph[j], bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[NV * c + i][e] += acc[i][e];
+    }
+  }
+
+  float* ob = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (qr[r] >= p.L) continue;
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    float* orow = ob + qr[r] * p.so.l;
+#pragma unroll
+    for (int c = 0; c < D / (8 * NV); ++c)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x[NV];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) x[i] = o[NV * c + i][2 * r + half] * inv;
+        st_vec<NV>(orow + 8 * NV * c + NV * (2 * t + half), x);
+      }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -1294,8 +1529,11 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, int threads,
 }
 
 template <int D>
-cudaError_t dispatch_f32(dim3 grid, const Params& p, cudaStream_t stream) {
-  return launch(flash_f32_kernel<D>, f32_smem_bytes<D>(), grid, kF32Threads,
+cudaError_t dispatch_f32(const Params& p, int B, int Hq,
+                         cudaStream_t stream) {
+  using Lay = F32Layout<D>;
+  const dim3 grid(Hq, B, (p.L + Lay::kBQ - 1) / Lay::kBQ);
+  return launch(flash_3xtf32_kernel<D>, Lay::kSmemBytes, grid, Lay::kThreads,
                 p, stream);
 }
 
@@ -1308,11 +1546,11 @@ cudaError_t dispatch_mma(dim3 grid, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v, o: device pointers; element strides (batch, head, row) of each,
-// the head dim D contiguous.  route: 0 float32 on the CUDA cores (D 16, 32,
-// 64, 128 or 256), 1 bfloat16 through mma.sync (D 16 or 32), 2 bfloat16
-// through wgmma and TMA (D 64, 128 or 256); any other pairing is refused,
-// and so is a stride of 0 on a dim of size > 1 on route 2.  Returns a
-// cudaError_t (0 on success).
+// the head dim D contiguous.  route: 0 float32 in 3xTF32 on the tensor
+// cores (D 16, 32, 64, 128 or 256), 1 bfloat16 through mma.sync (D 16 or
+// 32), 2 bfloat16 through wgmma and TMA (D 64, 128 or 256); any other
+// pairing is refused, and so is a stride of 0 on a dim of size > 1 on
+// route 2.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int route, int B,
     int Hq, int Hkv, int L, int D, long long q_sb, long long q_sh,
@@ -1338,11 +1576,11 @@ extern "C" int flash_attention_fwd(
   cudaError_t err = cudaErrorInvalidValue;
   if (route == 0) {
     switch (D) {
-      case 16: err = dispatch_f32<16>(grid, p, s); break;
-      case 32: err = dispatch_f32<32>(grid, p, s); break;
-      case 64: err = dispatch_f32<64>(grid, p, s); break;
-      case 128: err = dispatch_f32<128>(grid, p, s); break;
-      case 256: err = dispatch_f32<256>(grid, p, s); break;
+      case 16: err = dispatch_f32<16>(p, B, Hq, s); break;
+      case 32: err = dispatch_f32<32>(p, B, Hq, s); break;
+      case 64: err = dispatch_f32<64>(p, B, Hq, s); break;
+      case 128: err = dispatch_f32<128>(p, B, Hq, s); break;
+      case 256: err = dispatch_f32<256>(p, B, Hq, s); break;
       default: break;
     }
   } else if (route == 1) {
@@ -1366,11 +1604,11 @@ extern "C" int flash_attention_fwd(
 // bytes (0 for a pairing the entry point refuses).
 extern "C" int flash_attention_smem_bytes(int route, int D) {
   switch (route * 1000 + D) {
-    case 16: return f32_smem_bytes<16>();
-    case 32: return f32_smem_bytes<32>();
-    case 64: return f32_smem_bytes<64>();
-    case 128: return f32_smem_bytes<128>();
-    case 256: return f32_smem_bytes<256>();
+    case 16: return F32Layout<16>::kSmemBytes;
+    case 32: return F32Layout<32>::kSmemBytes;
+    case 64: return F32Layout<64>::kSmemBytes;
+    case 128: return F32Layout<128>::kSmemBytes;
+    case 256: return F32Layout<256>::kSmemBytes;
     case 1016: return bf16_smem_bytes<16>();
     case 1032: return bf16_smem_bytes<32>();
     case 2064: return WgLayout<64>::kSmemBytes;

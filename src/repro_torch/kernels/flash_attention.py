@@ -14,7 +14,11 @@ the kernel a CUDA tensor launches, a fixed function of (dtype, D):
   hold O's 128 registers beside a 64-key tile's S and P;
 * bf16, D 16 or 32 — ``mma.sync`` m16n8k16, synchronous tile loads, Q's
   fragments read from shared memory once per K tile;
-* float32, any of ``HEAD_DIMS`` — FMAs on the CUDA cores.
+* float32, any of ``HEAD_DIMS`` — both products on the tensor cores in
+  3xTF32 (``mma.sync`` m16n8k8; each operand split in registers into a
+  TF32 hi and its remainder, three TF32 products for each f32 one, so the
+  result keeps float32 accuracy), P kept in registers, K/V tiles through
+  a two-stage ``cp.async`` ring that reads any stride, 0 included.
 
 * ``attention_plain``     — the plain torch version, the counterpart of
   the reference's ``kernels/ref.py::attention_ref``: materialised scores,
@@ -41,7 +45,7 @@ from repro_torch.kernels._build import CSRC, build_library
 
 SOURCE = CSRC / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
-ROUTES = {"f32-fma": 0, "mma-sync": 1, "wgmma-tma": 2}   # the C entry's codes
+ROUTES = {"f32-3xtf32": 0, "mma-sync": 1, "wgmma-tma": 2}   # the C entry's codes
 NO_BACKWARD = ("flash attention has no backward pass (neither has the "
                "reference kernel); it comes with the transformer's training "
                "slice, ROADMAP queue 2, item 3")
@@ -71,7 +75,7 @@ def build() -> str:
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA tensor of this dtype and head dim launches."""
     if dtype == torch.float32:
-        return "f32-fma"
+        return "f32-3xtf32"
     return "wgmma-tma" if d in (64, 128, 256) else "mma-sync"
 
 

@@ -123,6 +123,12 @@ class OpCounter(TorchDispatchMode):
         self.live_bytes -= self._storages.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        """Count one local op.  An op on fake tensors is not one: DTensor's
+        sharding propagation runs ops on them at an op's first call to
+        learn its output shapes (and its cache keeps them alive), so
+        counting them would raise a process's first case above the same
+        case run again, in FLOPs, bytes and peak."""
+        from torch._subclasses.fake_tensor import is_fake
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
         if isinstance(func, torch._ops.HigherOrderOperator):
@@ -130,6 +136,8 @@ class OpCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # let DTensor desugar to local ops
         out = func(*args, **kwargs)
+        if any(is_fake(t) for t in tree_flatten((args, kwargs, out))[0]):
+            return out
         for t in tree_flatten(out)[0]:
             self._track(t)
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)

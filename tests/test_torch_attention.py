@@ -186,11 +186,12 @@ def test_decode_takes_the_model_cache_layout_without_a_copy():
 
 def test_flash_route_is_a_function_of_dtype_and_head_dim():
     """bf16 at D 64, 128 and 256 takes the wgmma + TMA kernel, bf16 at D 16
-    and 32 the mma.sync kernel, float32 the CUDA-core kernel."""
+    and 32 the mma.sync kernel, float32 the 3xTF32 tensor-core kernel."""
     assert [fa.route(torch.bfloat16, d) for d in fa.HEAD_DIMS] == [
         "mma-sync", "mma-sync", "wgmma-tma", "wgmma-tma", "wgmma-tma"]
-    assert {fa.route(torch.float32, d) for d in fa.HEAD_DIMS} == {"f32-fma"}
-    assert set(fa.ROUTES) == {"f32-fma", "mma-sync", "wgmma-tma"}
+    assert {fa.route(torch.float32, d) for d in fa.HEAD_DIMS} == {
+        "f32-3xtf32"}
+    assert set(fa.ROUTES) == {"f32-3xtf32", "mma-sync", "wgmma-tma"}
 
 
 def test_decode_split_fills_the_card_at_the_yi6b_shape():

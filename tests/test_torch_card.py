@@ -14,8 +14,12 @@ keys); bfloat16 outputs row by row, ||got - want|| / ||want|| over the head
 dim, as ``chip_smoke.py`` holds them (a single rounding of the output to
 bf16 stays under 2^-8; the flash kernel also rounds P to bf16 for its
 tensor-core product).  The flash cases cover both bf16 routes (wgmma + TMA
-at D 64, 128 and 256, mma.sync at D 16 and 32) and the wgmma tiling's
-edges;
+at D 64, 128 and 256, mma.sync at D 16 and 32), the f32 route (3xTF32 on
+mma.sync at every D: ragged L against its 64- and 32-key tiles, windows,
+GQA groups 1 to 10, k/v broadcast with a stride of 0) and the wgmma
+tiling's edges; the f32 route is also held against the plain version run
+in float64, row by row at 2e-5, a limit that one TF32 product (the plain
+version with q, k, v and P rounded to TF32) fails;
 the decode cases the split-S plan's edges (empty chunks, ragged S, one
 chunk, two head chunks a kv head, a row with no valid slot).  The SSD
 chunk kernel's four outputs are each held relative to their own scale,
@@ -37,6 +41,9 @@ which it must reject.  The mobile path's cell→cloud hierarchy and a moving
 3-cell open-world run are held against the same on the CPU: protocol
 decisions and host numbers bitwise, params within rtol 1e-5, atol 1e-6.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -213,7 +220,7 @@ def test_flash_kernel_matches_plain(dtype, b, hq, hkv, sl, d, causal,
                                     window):
     _need_card()
     assert fa.route(dtype, d) == (ROUTE[d] if dtype == torch.bfloat16
-                                  else "f32-fma")
+                                  else "f32-3xtf32")
     q, k, v = _randn(sl + d, dtype, (b, hq, sl, d), (b, hkv, sl, d),
                      (b, hkv, sl, d))
     before = fa.LAUNCHES
@@ -234,12 +241,13 @@ def test_flash_kernel_matches_plain(dtype, b, hq, hkv, sl, d, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_flash_kernel_broadcast_kv(dtype, d):
     """k/v expanded from one head of one batch row (stride 0 over B and
-    H): the f32 and mma.sync routes read it in place; the wgmma route's
-    tensor maps cannot step a stride of 0, so the wrapper and the C entry
-    refuse it.  A stride of 0 on a size-1 dim is fine on every route."""
+    H): the f32 route (cp.async copies) and the bf16 mma.sync route read it
+    in place; the wgmma route's tensor maps cannot step a stride of 0, so
+    the wrapper and the C entry refuse it.  A stride of 0 on a size-1 dim
+    is fine on every route."""
     _need_card()
     b, hq, hkv, sl = 2, 4, 2, 200
     q, kb, vb = _randn(d, dtype, (b, hq, sl, d), (1, 1, sl, d),
@@ -274,6 +282,51 @@ def test_flash_kernel_broadcast_kv(dtype, d):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
     _assert_attn_close("flash", got, want[:1])
+
+
+# The f32 route against the plain version in float64, row by row:
+# ||got - want|| / ||want|| over the head dim.  3xTF32 keeps about 22 bits
+# of each operand (2^-22 ~ 2.4e-7 a product), so a row reads ~1e-6, as the
+# float32 plain version does; one TF32 product (2^-11 ~ 4.9e-4 an operand)
+# reads ~1e-3.  2e-5 sits more than an order of magnitude from each.
+F32_F64_ROW_RTOL = 2e-5
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, whose attention yardsticks the card tests share:
+    the plain version under an explicit mask in any precision, and the f32
+    route's planted fault (q, k, v and P rounded to TF32, one product)."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _row_rel(got, want):
+    return float(((got.double() - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv,sl,causal,window", [
+    (4, 4, 333, True, 0),        # group 1, L ragged against every tile
+    (8, 2, 1000, True, 200),     # group 4, a window edge inside tiles
+    (8, 1, 257, False, 0),       # group 8, non-causal, one key past a tile
+])
+def test_flash_f32_route_holds_float64(d, hq, hkv, sl, causal, window):
+    _need_card()
+    assert fa.route(torch.float32, d) == "f32-3xtf32"
+    q, k, v = _randn(sl + 7 * d, torch.float32, (2, hq, sl, d),
+                     (2, hkv, sl, d), (2, hkv, sl, d))
+    cs = _chip_smoke()
+    got = fa.flash_attention_bhld(q, k, v, causal=causal, window=window)
+    want = cs.attention_keep(torch, q, k, v, cs.keep_mask(
+        torch, sl, causal, window, q.device), cast=torch.Tensor.double)
+    assert want.dtype == torch.float64
+    assert _row_rel(got, want) <= F32_F64_ROW_RTOL
+    fault = cs.attention_one_tf32(torch, q, k, v, causal, window)
+    assert _row_rel(fault, want) > F32_F64_ROW_RTOL
 
 
 def test_flash_wgmma_d256_fits_shared_memory():

@@ -23,9 +23,11 @@
   arguments and its peak is lower by the params' bytes (the undonated
   step holds the new params beside the old through the refresh); an
   undonated decode case copies the cache, so its peak is higher than the
-  donated one's by the cache's bytes.  ``op_analysis`` counts DTensor's
-  sharding propagation's first-call fake tensors as live storages, so
-  each comparison runs its case once before the two it compares.
+  donated one's by the cache's bytes.  Each case runs once undonated and
+  once donated, whichever runs first in the process: ``op_analysis``
+  counts no fake tensor of DTensor's sharding propagation
+  (``tests/test_torch_dryrun.py`` holds a fresh process's first case to
+  the same peak as its second).
 * The kernel wrappers' in-place forms on the CPU (their plain versions
   written with ``copy_``): bitwise the out-of-place results, in the
   arguments' storage.
@@ -240,11 +242,11 @@ SHAPES = {"train": ShapeConfig("t", seq_len=64, global_batch=8, kind="train"),
 
 
 def dry_records(kind, dims, **kw):
-    """The reduced yi-6b case run three times on 8 fake ranks: once to warm
-    DTensor's sharding propagation, then undonated and donated."""
+    """The reduced yi-6b case run on 8 fake ranks undonated, then
+    donated."""
     cfg = get_config("yi_6b").reduced()
     out = {}
-    for donate in (True, False, True):
+    for donate in (False, True):
         with fake_world(8):
             mesh = make_mesh(*dims)
             out[donate] = dryrun.lower(cfg, SHAPES[kind], mesh,

@@ -11,11 +11,17 @@ shape) give: the product over dims of ceil(size / ranks splitting it),
 times the item size, and a peak at least the argument bytes.  Also: the
 roofline's axis pricing, the ``no_remat`` lever (accepted; it turns
 ``cfg.remat`` off and raises a plain gradient step's peak), and the
-collective counts against torch's ``CommDebugMode``.  The ``donate``
-lever's cases are in ``tests/test_torch_donate.py``.
+collective counts against torch's ``CommDebugMode``, and a fresh
+process's first case giving the peak of the same case run again.  The
+``donate`` lever's cases are in ``tests/test_torch_donate.py``.
 """
 import dataclasses
+import json
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -32,6 +38,7 @@ from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import fake_world, make_mesh
 from repro_torch.launch.specs import arch_rules
 
+ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {
     "train": ShapeConfig("t", seq_len=64, global_batch=8, kind="train"),
     "prefill": ShapeConfig("p", seq_len=128, global_batch=8, kind="prefill"),
@@ -188,3 +195,53 @@ def test_cli_accepts_no_remat(monkeypatch, tmp_path):
     dryrun.main(["--arch", "yi_6b", "--shape", "train_4k", "--opt",
                  "no_remat", "--out", str(tmp_path)])
     assert seen == [("no_remat",)]
+
+
+# the reduced yi-6b multi-pod semi-sync case of ``tests/test_torch_donate.py``
+# (undonated), twice in one process; prints each run's FLOPs, bytes and peak
+_FIRST_CASE = """
+import json
+import torch
+from repro_torch.config import FLConfig, ShapeConfig
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_mesh
+from repro_torch.launch.specs import arch_rules
+torch.set_num_threads(1)
+cfg = get_config("yi_6b").reduced()
+shape = ShapeConfig("t", seq_len=64, global_batch=8, kind="train")
+counts = []
+for _ in range(2):
+    with fake_world(8):
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+        rec = dryrun.lower(cfg, shape, mesh, rules=arch_rules(cfg, mesh),
+                           semi_sync_cohorts=2,
+                           fl=FLConfig(first_order=True))
+    counts.append([rec["flops"], rec["bytes_accessed"],
+                   rec["memory"]["peak_bytes"]])
+print(json.dumps(counts))
+"""
+
+
+def test_first_case_of_a_process_gives_the_warm_peak():
+    """DTensor's sharding propagation makes fake tensors on an op's first
+    call and caches them; ``op_analysis`` must not count them, so a fresh
+    process's first case has the FLOPs, bytes and peak of its second, and
+    the peak is also what ``tests/test_torch_donate.py`` reads for the
+    same case."""
+    from test_torch_donate import dry_records
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _FIRST_CASE], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    try:                              # the two processes run side by side
+        und, _ = dry_records("train", MESHES["multi"], semi_sync_cohorts=2,
+                             fl=FLConfig(first_order=True))
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, stderr[-4000:]
+    first, second = json.loads(stdout.strip().splitlines()[-1])
+    assert first == second
+    assert first[2] == und["peak_bytes"]
