@@ -1,0 +1,1 @@
+"""Workload kinds: one module each, named by a traffic file's ``kind``."""
